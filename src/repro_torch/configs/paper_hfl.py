@@ -1,0 +1,57 @@
+"""The paper's own HFL experiment configuration (Table I), and the
+1000-client cohort the device simulator runs.
+
+A copy of the reference's ``configs/paper_hfl.py`` values (the port
+imports nothing of the JAX package). Datasets are synthetic with the
+paper's structure: non-IID, 2 labels per client.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class HFLExperimentConfig:
+    name: str
+    num_clients: int = 50           # N
+    num_edge_servers: int = 3       # M
+    update_bits: float = 0.18e6     # a_DT = a_UT, size of model updates (bits)
+    workload: float = 2.41e6        # q, bytes of computation workload
+    tx_power_dbm: float = 23.0      # P_n
+    deadline_s: float = 3.0         # tau_dead
+    price_low: float = 0.5          # pricing U[0.5, 2] per MHz
+    price_high: float = 2.0
+    budget: float = 3.5             # B per ES
+    context_dim: int = 2            # (download rate, compute) in [0,1]^2
+    holder_alpha: float = 1.0
+    h_t: int = 5                    # context partition per dim (Table I)
+    local_epochs: int = 2           # E
+    t_es: int = 5                   # global aggregation period
+    lr: float = 0.005
+    bandwidth_low: float = 0.3e6    # Hz
+    bandwidth_high: float = 1.0e6
+    compute_low: float = 2.0e6      # cycles/s-ish proxy ("MHz")
+    compute_high: float = 4.0e6
+    cell_radius_km: float = 2.0
+    noise_dbm_per_hz: float = -174.0   # thermal noise PSD
+    min_clients_z: int = 1          # Z: minimum updates per edge aggregation
+    utility: str = "linear"         # "linear" (convex) | "sqrt" (non-convex)
+
+
+MNIST_CONVEX = HFLExperimentConfig(name="mnist-convex")
+
+# 1000 clients over 12 edge servers; the budget keeps each ES to a
+# handful of clients a round
+METROPOLIS_1K = HFLExperimentConfig(
+    name="mnist-metropolis-1k",
+    num_clients=1000,
+    num_edge_servers=12,
+    budget=12.0,
+)
+
+BURSTY_1K = HFLExperimentConfig(
+    name="mnist-bursty-1k",
+    num_clients=1024,
+    num_edge_servers=8,
+    budget=8.0,
+)

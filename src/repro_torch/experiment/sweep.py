@@ -1,0 +1,157 @@
+"""``sweep_experiments``: whole multi-seed HFL experiments on a device
+environment, one training block per eval interval.
+
+Every seed gets its own realized environment (``sim``), model init,
+sampler stream (``PRNGKey(seed + 11)``) and policy state, over one shared
+dataset (``seed=0``), as the reference's ``sweep_experiments``; the seed
+axis is a batch dimension throughout.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import random as jr
+from repro_torch.data.federated import FederatedDataset, StackedClients
+from repro_torch.experiment.fused import block_device
+from repro_torch.fed.batched import BatchedRoundSpec
+from repro_torch.kernels.common import resolve_device
+from repro_torch.models.logistic import init_logreg
+from repro_torch.policies.base import FunctionalPolicy, PolicySpec
+from repro_torch.policies.cocs import COCS
+from repro_torch.sim import spec as simspec
+from repro_torch.sim.core import init_statics
+
+
+@dataclass
+class SweepResult:
+    """Per-policy, per-seed experiment trajectories (numpy)."""
+    policies: List[str]
+    seeds: List[int]
+    eval_rounds: np.ndarray                      # (E,) 1-based round ids
+    accuracy: Dict[str, np.ndarray]              # (S, E)
+    loss: Dict[str, np.ndarray]                  # (S, E)
+    utilities: Dict[str, np.ndarray]             # (S, T)
+    participants: Dict[str, np.ndarray]          # (S, T)
+    selections: Dict[str, np.ndarray]            # (S, T, N)
+    explored: Dict[str, np.ndarray] = field(default_factory=dict)
+
+
+def _block_bounds(horizon: int, eval_every: int) -> List[int]:
+    """Exclusive block ends: an eval after every ``eval_every`` rounds
+    and after the final round."""
+    return [t + 1 for t in range(horizon)
+            if (t + 1) % eval_every == 0 or t == horizon - 1]
+
+
+class TrainingSetup(NamedTuple):
+    data: FederatedDataset
+    stacked: StackedClients
+    batch: int                 # batch size clamped to smallest shard
+    steps: int                 # local SGD steps per round
+    edge_seed: Dict[str, torch.Tensor]   # (S, M, ...) initial edge params
+    base_keys: torch.Tensor    # (S, 2) per-seed sampler keys
+    spec: BatchedRoundSpec
+    test_x: torch.Tensor
+    test_y: torch.Tensor
+
+
+def prepare_training(cfg, model_kind: str, batch_size: int,
+                     batches_per_epoch: int,
+                     data: Optional[FederatedDataset],
+                     seeds: Sequence[int], device) -> TrainingSetup:
+    """Training state shared by every seed: the synthetic dataset
+    (``seed=0``) unless given, stacked shards on ``device``, zero logreg
+    edge models, sampler keys ``PRNGKey(seed + 11)`` and the round
+    spec."""
+    if model_kind != "logreg":
+        raise NotImplementedError(
+            f"model {model_kind!r} is not ported yet; the slice runs "
+            "'logreg' (ROADMAP, queue A)")
+    data = data or FederatedDataset.synthetic(cfg.num_clients, kind="mnist",
+                                              seed=0)
+    stacked = data.stacked(device)
+    batch = int(min(batch_size, int(stacked.sizes.min())))
+    steps = cfg.local_epochs * batches_per_epoch
+    nf = int(np.prod(data.test_x.shape[1:]))
+    p0 = init_logreg(num_features=nf, device=device)
+    s, m = len(seeds), cfg.num_edge_servers
+    edge = {k: v.expand((s, m) + v.shape).clone() for k, v in p0.items()}
+    spec = BatchedRoundSpec(num_edge_servers=m, steps=steps, lr=cfg.lr,
+                            z_min=cfg.min_clients_z, t_es=cfg.t_es)
+    base_keys = jr.PRNGKey(torch.as_tensor([int(x) + 11 for x in seeds]),
+                           device)
+    return TrainingSetup(
+        data=data, stacked=stacked, batch=batch, steps=steps,
+        edge_seed=edge, base_keys=base_keys, spec=spec,
+        test_x=torch.as_tensor(data.test_x, device=device),
+        test_y=torch.as_tensor(data.test_y, device=device))
+
+
+def _make_policies(policies: Sequence[str], cfg, horizon
+                   ) -> Dict[str, FunctionalPolicy]:
+    spec = PolicySpec.from_experiment(cfg, horizon)
+    out = {}
+    for name in policies:
+        if name.lower() != "cocs":
+            raise NotImplementedError(
+                f"policy {name!r} is not ported yet; the slice runs "
+                "'cocs' (ROADMAP, queue A)")
+        out[name] = COCS(spec=spec, alpha=cfg.holder_alpha, h_t=cfg.h_t)
+    return out
+
+
+def sweep_experiments(policies: Sequence[str], env,
+                      seeds: Sequence[int], horizon: int, *,
+                      model_kind: str = "logreg", batch_size: int = 32,
+                      batches_per_epoch: int = 2, eval_every: int = 5,
+                      data: Optional[FederatedDataset] = None,
+                      slots_per_es: Optional[int] = None,
+                      device=None) -> SweepResult:
+    """Run every policy for every seed over ``horizon`` training rounds
+    on a device environment (``"device:<preset>"``).
+
+    ``device=None`` runs on CUDA and raises without a CUDA device; pass
+    ``device="cpu"`` for the plain PyTorch path. ``slots_per_es`` pins
+    the per-ES slot capacity (a round that assigns more raises);
+    ``None`` sizes each round to its largest cohort."""
+    dev = resolve_device(device)
+    env = simspec.resolve(env)
+    cfg = env.cfg
+    seeds = [int(x) for x in seeds]
+    pols = _make_policies(policies, cfg, horizon)
+    setup = prepare_training(cfg, model_kind, batch_size,
+                             batches_per_epoch, data, seeds, dev)
+    seed_t = torch.as_tensor(seeds, dtype=torch.int64, device=dev)
+    statics = init_statics(env.spec, seed_t)
+    ends = _block_bounds(horizon, eval_every)
+    result = SweepResult(policies=list(pols), seeds=seeds,
+                         eval_rounds=np.asarray(ends), accuracy={}, loss={},
+                         utilities={}, participants={}, selections={},
+                         explored={})
+    for name, pol in pols.items():
+        pstate = pol.init(len(seeds), dev)
+        edge = {k: v.clone() for k, v in setup.edge_seed.items()}
+        pos = statics.pos0.clone()
+        outs, lo = [], 0
+        for hi in ends:
+            out = block_device(pol, setup.spec, env.spec, pstate, edge, pos,
+                               seed_t, statics, lo, hi, setup.stacked,
+                               setup.base_keys, setup.batch, setup.test_x,
+                               setup.test_y, slots=slots_per_es)
+            pstate, edge, pos = out.policy_state, out.edge_params, \
+                out.env_pos
+            outs.append(out)
+            lo = hi
+        host = lambda f, cat: (torch.cat if cat else torch.stack)(
+            [getattr(o, f) for o in outs], dim=1).cpu().numpy()
+        result.accuracy[name] = host("accuracy", False)
+        result.loss[name] = host("loss", False)
+        result.utilities[name] = host("utilities", True)
+        result.participants[name] = host("participants", True)
+        result.selections[name] = host("selections", True)
+        result.explored[name] = host("explored", True)
+    return result

@@ -1,0 +1,83 @@
+"""Builds the port's CUDA kernels with nvcc and loads them with ctypes.
+
+Each source in ``repro_torch/csrc`` has a plain C entry point (no PyTorch
+headers, so a build takes seconds). At first use every source is
+compiled, all at once, into ``build/repro_torch/<hash>/`` at the root of
+the checkout (or ``$REPRO_TORCH_BUILD``), keyed on a hash of the
+sources and the flags, so an edited source is never served stale. A
+build or load error raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("context_pairwise", "density_sort", "masked_aggregate")
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+BUILD_LOG: Dict[str, str] = {}
+
+
+def _build_root() -> Path:
+    env = os.environ.get("REPRO_TORCH_BUILD")
+    if env:
+        return Path(env)
+    return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the port's CUDA kernels are "
+                           "built from source at first use")
+    return found
+
+
+def build_dir() -> Path:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for name in SOURCES:
+        h.update((CSRC / f"{name}.cu").read_bytes())
+    return _build_root() / h.hexdigest()[:16]
+
+
+def build_all() -> Dict[str, Path]:
+    """Compile every source not yet built (one nvcc each, all started
+    together); returns the shared-library paths."""
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    libs = {n: out / f"lib{n}.so" for n in SOURCES}
+    todo = [n for n in SOURCES if not libs[n].exists()]
+    procs = {}
+    for n in todo:
+        tmp = out / f"lib{n}.{os.getpid()}.tmp.so"
+        cmd = [_nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True))
+    errors = []
+    for n, (tmp, p) in procs.items():
+        log, _ = p.communicate()
+        BUILD_LOG[n] = log
+        if p.returncode != 0:
+            errors.append(f"nvcc {n}.cu failed ({p.returncode}):\n{log}")
+            continue
+        os.replace(tmp, libs[n])
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return libs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of one source (builds everything first)."""
+    if name not in _LIBS:
+        path = build_all()[name]
+        _LIBS[name] = ctypes.CDLL(str(path))
+    return _LIBS[name]

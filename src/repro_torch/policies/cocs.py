@@ -1,0 +1,142 @@
+"""COCS: the paper's CC-MAB policy (index mode) on tensors.
+
+State is two tensors, per-(seed, client, ES, hypercube) visit counters
+and participation estimates. A round bins each eligible pair's context
+into its hypercube, values under-explored pairs optimistically (UCB
+bonus; the Theorem 2 threshold ``K(t) = t^z log t``), solves P2 with the
+density greedy (``solvers.greedy_assign``), and folds the observed
+outcomes of the selected pairs into the estimates. The arithmetic is the
+reference's (``policies/cocs.py``), operation for operation.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.core.fmath import sqrt_rn
+from repro_torch.policies.base import FunctionalPolicy, Round
+from repro_torch.policies.solvers import greedy_assign
+
+
+def theorem2_params(horizon: int, alpha: float = 1.0) -> Tuple[float, int]:
+    """(z, h_T) from Theorem 2."""
+    z = 2 * alpha / (3 * alpha + 2)
+    h_t = max(1, math.ceil(horizon ** (z / (2 * alpha))))
+    return z, h_t
+
+
+# the reference's defaults: K(t) multiplier and UCB bonus coefficient
+K_SCALE = 1.0
+BONUS_SCALE = 0.35
+
+
+class COCSState(NamedTuple):
+    counters: torch.Tensor     # (S, N, M, h, h) int32
+    p_hat: torch.Tensor        # (S, N, M, h, h) float32
+
+
+@dataclass(frozen=True)
+class COCS(FunctionalPolicy):
+    """Index-mode COCS with the P2 density greedy."""
+    alpha: float = 1.0
+    h_t: Optional[int] = None
+
+    name: str = field(default="COCS")
+
+    def __post_init__(self):
+        if self.spec.sqrt_utility:
+            raise NotImplementedError(
+                "COCS with the sqrt utility needs the P3 flgreedy walk, "
+                "which is not ported yet (ROADMAP, queue A)")
+
+    def _params(self) -> Tuple[float, int]:
+        z, h_thm = theorem2_params(self.spec.horizon, self.alpha)
+        return z, (self.h_t if self.h_t is not None else h_thm)
+
+    def init(self, num_seeds: int, device=None) -> COCSState:
+        _, h = self._params()
+        shape = (num_seeds, self.spec.num_clients,
+                 self.spec.num_edge_servers, h, h)
+        return COCSState(
+            counters=torch.zeros(shape, dtype=torch.int32, device=device),
+            p_hat=torch.zeros(shape, dtype=torch.float32, device=device))
+
+    def _cubes(self, contexts: torch.Tensor, h: int) -> torch.Tensor:
+        idx = torch.floor(torch.nan_to_num(contexts) * h).to(torch.int32)
+        return torch.clamp(idx, 0, h - 1)
+
+    @staticmethod
+    def _cell(cubes: torch.Tensor, j: torch.Tensor, h: int, m: int
+              ) -> torch.Tensor:
+        """Flat (client, ES, cube) cell index into (S, N*M*h*h)."""
+        n = cubes.shape[1]
+        i = torch.arange(n, device=cubes.device).view(1, n,
+                                                      *([1] * (j.dim() - 2)))
+        c0, c1 = cubes[..., 0].long(), cubes[..., 1].long()
+        return ((i * m + j) * h + c0) * h + c1
+
+    def _gather(self, arr: torch.Tensor, cubes: torch.Tensor, h: int
+                ) -> torch.Tensor:
+        s, n, m = cubes.shape[:3]
+        j = torch.arange(m, device=cubes.device).view(1, 1, m)
+        cell = self._cell(cubes, j, h, m)
+        return torch.gather(arr.reshape(s, -1), 1,
+                            cell.reshape(s, -1)).reshape(s, n, m)
+
+    def k_of_t(self, t: torch.Tensor, z: float) -> torch.Tensor:
+        tf = torch.clamp(t.to(torch.float32), min=1.0)
+        return K_SCALE * tf ** z * torch.log(torch.clamp(tf, min=2.0))
+
+    def pair_values(self, state: COCSState, rd: Round
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The optimistic score table the greedy solver gets, as
+        ``(values, under)`` (both (S, N, M))."""
+        z, h = self._params()
+        cubes = self._cubes(rd.contexts, h)
+        counts = self._gather(state.counters, cubes, h)
+        est = self._gather(state.p_hat, cubes, h)
+        t1 = rd.t.to(torch.int32) + 1
+        under = rd.eligible & (counts <= self.k_of_t(t1, z)[:, None, None])
+        tf = torch.clamp(t1.to(torch.float32), min=2.0)
+        bonus = BONUS_SCALE * sqrt_rn(
+            (2.0 * torch.log(tf))[:, None, None]
+            / torch.clamp(counts, min=1))
+        optimistic = torch.where(counts == 0, torch.ones_like(est),
+                                 torch.clamp(est + bonus, max=1.0))
+        return torch.where(under, optimistic, est), under
+
+    def select(self, state: COCSState, rd: Round):
+        values, under = self.pair_values(state, rd)
+        budgets = torch.as_tensor(self.spec.budgets(), device=values.device)
+        assign = greedy_assign(values, rd.costs.to(values.dtype), budgets,
+                               rd.eligible)
+        return assign, {"explored": under.any(dim=2).any(dim=1)}
+
+    def update(self, state: COCSState, rd: Round, assign: torch.Tensor,
+               aux=None) -> COCSState:
+        del aux
+        _, h = self._params()
+        counters, p_hat = state
+        s, n, m = counters.shape[:3]
+        cubes = self._cubes(rd.contexts, h)
+        assign = assign.long()
+        sel = assign >= 0
+        j = torch.clamp(assign, 0, m - 1)
+        ab = torch.gather(cubes, 2, j[:, :, None, None].expand(s, n, 1, 2)
+                          )[:, :, 0]                       # (S, N, 2)
+        i = torch.arange(n, device=j.device)[None]
+        cell = ((i * m + j) * h + ab[..., 0].long()) * h + ab[..., 1].long()
+        x = torch.gather(rd.outcomes.to(p_hat.dtype), 2,
+                         j[..., None])[..., 0]
+        cflat, pflat = counters.reshape(s, -1), p_hat.reshape(s, -1)
+        c_old = torch.gather(cflat, 1, cell)
+        p_old = torch.gather(pflat, 1, cell)
+        p_new = (p_old * c_old + x) / (c_old + 1)
+        # one cell per (seed, client): the scatters never collide
+        pflat = pflat.scatter(1, cell, torch.where(sel, p_new, p_old))
+        cflat = cflat.scatter(1, cell, torch.where(sel, c_old + 1, c_old))
+        return COCSState(counters=cflat.view_as(counters),
+                         p_hat=pflat.view_as(p_hat))

@@ -1,0 +1,36 @@
+"""Per-round selection solvers (P2).
+
+``greedy_assign`` is the P2 density greedy: take the highest-density
+still-feasible (client, ES) pair until none is left, ties toward the
+larger flat index. It runs as the budgeted_topk walk over sorted
+candidate segments (``kernels.budgeted_topk``): the density sort is the
+hand-written CUDA kernel on a CUDA device, its plain version on the CPU,
+and the walk consumes either layout identically.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.budgeted_topk.ops import budgeted_topk
+
+
+def feasible_cohort_bound(budget: float, min_cost: float,
+                          num_clients: int) -> int:
+    """Largest per-ES cohort any budget-feasible assignment can produce:
+    ``floor(B / min cost)`` (every solver adds a client only while its
+    cost fits the remaining budget)."""
+    if min_cost <= 0.0:
+        return int(num_clients)
+    return int(min(num_clients,
+                   max(1, math.floor(budget / min_cost + 1e-9))))
+
+
+def greedy_assign(values: torch.Tensor, costs: torch.Tensor,
+                  budgets: torch.Tensor, eligible: torch.Tensor
+                  ) -> torch.Tensor:
+    """Density greedy for P2. values (S, N, M), costs (S, N), budgets
+    (S, M) or (M,), eligible (S, N, M) bool -> assign (S, N) int32
+    (-1 = unselected)."""
+    return budgeted_topk(values, costs, budgets, eligible)

@@ -1,0 +1,179 @@
+"""Static configuration for the device simulator.
+
+``SimSpec`` flattens an ``(HFLExperimentConfig, ScenarioSpec)`` pair into
+one frozen bundle of numbers: dimensions, channel physics and scenario
+knobs. Derived constants (``rate_hi``, watt conversions, tier edges,
+arrival window) are computed here once, in float64, with the host
+formulas, so the float32 device math starts from the reference's exact
+constants.
+
+Presets: the paper-scale scenarios (``paper``, ``static-clients``,
+``high-mobility``, ``tiered-pricing``) at N=50, M=3, and the cohorts
+``metropolis-1k`` (1000 clients, 12 ES) and ``bursty-arrival`` (1024
+clients, 8 ES, duty-cycled availability). ``flash-crowd`` needs the
+surge-cohort permutation, which is not ported yet (ROADMAP, queue A).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+
+from repro_torch.configs.paper_hfl import (BURSTY_1K, METROPOLIS_1K,
+                                           MNIST_CONVEX, HFLExperimentConfig)
+from repro_torch.core.network import _dbm_to_watt, context_rate_hi
+
+
+@dataclass(frozen=True)
+class ScenarioSpec:
+    name: str = "paper"
+    mobility: float = 0.15
+    jitter: float = 0.30
+    # ((price, weight), ...) — draw each client's price from discrete tiers
+    price_tiers: Optional[Tuple[Tuple[float, float], ...]] = None
+    # flash-crowd pricing surges (surge_period == 0 disables)
+    surge_period: int = 0
+    surge_len: int = 10
+    surge_frac: float = 0.3
+    surge_discount: float = 0.3
+    # bursty arrival: available during a window of arrival_duty *
+    # arrival_period rounds at a per-client phase (0 disables)
+    arrival_period: int = 0
+    arrival_duty: float = 0.5
+
+
+SCENARIOS: Dict[str, ScenarioSpec] = {
+    "paper": ScenarioSpec(name="paper"),
+    "static-clients": ScenarioSpec(name="static-clients", mobility=0.0,
+                                   jitter=0.05),
+    "high-mobility": ScenarioSpec(name="high-mobility", mobility=0.6,
+                                  jitter=0.5),
+    "tiered-pricing": ScenarioSpec(
+        name="tiered-pricing",
+        price_tiers=((0.5, 0.5), (1.0, 0.3), (2.0, 0.2))),
+    "flash-crowd": ScenarioSpec(name="flash-crowd", surge_period=50),
+}
+
+
+def tier_edges(price_tiers) -> np.ndarray:
+    """Cumulative tier probabilities as float32 (the comparison values
+    the device sim uses, so tier membership matches bitwise)."""
+    w = np.array([w for _, w in price_tiers], np.float64)
+    return (np.cumsum(w) / w.sum()).astype(np.float32)
+
+
+@dataclass(frozen=True)
+class SimSpec:
+    """Everything static about one simulated network."""
+    num_clients: int
+    num_edge_servers: int
+    update_bits: float
+    workload: float
+    deadline_s: float
+    tx_w: float                 # transmit power, watts
+    noise_psd_w: float          # thermal noise PSD, watts/Hz
+    cell_radius_km: float
+    area: float                 # half-width of the bounding box, km
+    rate_hi: float              # context normalization (host float64)
+    price_low: float
+    price_high: float
+    bandwidth_low: float
+    bandwidth_high: float
+    compute_low: float
+    compute_high: float
+    mobility: float
+    jitter: float
+    price_tier_values: Optional[Tuple[float, ...]] = None
+    price_tier_edges: Optional[Tuple[float, ...]] = None
+    arrival_period: int = 0
+    arrival_len: int = 1
+    mc_true_p: int = 128        # Monte-Carlo fading pairs behind true_p
+
+    def min_cost(self) -> float:
+        """Analytic lower bound on any realized per-client cost:
+        2 * price * bandwidth / 1e6 at the cheapest price and
+        bandwidth_low."""
+        price = (min(self.price_tier_values) if self.price_tier_values
+                 else self.price_low)
+        return 2.0 * price * self.bandwidth_low / 1e6
+
+    @classmethod
+    def from_env(cls, cfg: HFLExperimentConfig, scen: ScenarioSpec
+                 ) -> "SimSpec":
+        """``true_p`` is the Monte-Carlo estimate; the analytic Eq. 6
+        integral is not ported yet (ROADMAP, queue A)."""
+        if scen.surge_period > 0:
+            raise NotImplementedError(
+                f"scenario {scen.name!r} needs the surge-cohort "
+                "permutation draw, which is not ported yet (ROADMAP, "
+                "queue A)")
+        tiers = scen.price_tiers
+        return cls(
+            num_clients=cfg.num_clients,
+            num_edge_servers=cfg.num_edge_servers,
+            update_bits=cfg.update_bits, workload=cfg.workload,
+            deadline_s=cfg.deadline_s,
+            tx_w=_dbm_to_watt(cfg.tx_power_dbm),
+            noise_psd_w=_dbm_to_watt(cfg.noise_dbm_per_hz),
+            cell_radius_km=cfg.cell_radius_km,
+            area=1.5 + cfg.cell_radius_km, rate_hi=context_rate_hi(cfg),
+            price_low=cfg.price_low, price_high=cfg.price_high,
+            bandwidth_low=cfg.bandwidth_low,
+            bandwidth_high=cfg.bandwidth_high,
+            compute_low=cfg.compute_low, compute_high=cfg.compute_high,
+            mobility=scen.mobility, jitter=scen.jitter,
+            price_tier_values=(tuple(float(p) for p, _ in tiers)
+                               if tiers else None),
+            price_tier_edges=(tuple(float(e) for e in tier_edges(tiers))
+                              if tiers else None),
+            arrival_period=scen.arrival_period,
+            arrival_len=(max(1, int(round(scen.arrival_duty
+                                          * scen.arrival_period)))
+                         if scen.arrival_period > 0 else 1))
+
+
+METROPOLIS_SCEN = ScenarioSpec(name="metropolis-1k", mobility=0.3,
+                               jitter=0.4)
+BURSTY_SCEN = ScenarioSpec(name="bursty-arrival", mobility=0.2, jitter=0.3,
+                           arrival_period=40, arrival_duty=0.35)
+
+PRESETS: Dict[str, Tuple[HFLExperimentConfig, ScenarioSpec]] = {
+    **{name: (MNIST_CONVEX, scen) for name, scen in SCENARIOS.items()},
+    "metropolis-1k": (METROPOLIS_1K, METROPOLIS_SCEN),
+    "bursty-arrival": (BURSTY_1K, BURSTY_SCEN),
+}
+
+
+def preset(name: str) -> Tuple[HFLExperimentConfig, ScenarioSpec]:
+    key = name.lower()
+    if key not in PRESETS:
+        raise KeyError(f"unknown sim preset {name!r}; available: "
+                       f"{tuple(sorted(PRESETS))}")
+    return PRESETS[key]
+
+
+class DeviceEnv(NamedTuple):
+    """A named device environment: its config, scenario and spec."""
+    cfg: HFLExperimentConfig
+    scenario: ScenarioSpec
+    spec: SimSpec
+
+
+def make(name: str = "paper") -> DeviceEnv:
+    cfg, scen = preset(name)
+    return DeviceEnv(cfg, scen, SimSpec.from_env(cfg, scen))
+
+
+def resolve(env) -> DeviceEnv:
+    """``"device"`` / ``"device:<preset>"`` -> ``DeviceEnv``; a
+    ``DeviceEnv`` passes through. Host environments are not ported."""
+    if isinstance(env, DeviceEnv):
+        return env
+    key = str(env).lower()
+    if key == "device":
+        return make("paper")
+    if key.startswith("device:"):
+        return make(key.split(":", 1)[1])
+    raise ValueError(f"env {env!r}: the port runs device environments "
+                     "only ('device' or 'device:<preset>')")

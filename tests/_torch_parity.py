@@ -1,0 +1,59 @@
+"""Shared helpers of the port's parity tests (``test_torch_*.py``): the
+same numpy inputs go through the JAX reference (on the CPU) and the
+PyTorch port, and the outputs come back as numpy for comparison."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# normal draws: XLA's erf_inv polynomial is ported op for op, but its
+# log1p is PyTorch's; the largest gap measured over 8M draws is 3 ulp
+NORMAL_MAX_ULP = 3
+# exponential draws: -log1p(-u), PyTorch's log1p against XLA's
+EXPONENTIAL_MAX_ULP = 1
+# env tensors (gain, rate, tau, contexts): one ulp of log/log1p moves
+# the path loss by an ulp of a ~150 dB number, 3.5e-6 relative in gain
+ENV_RTOL = 5e-6
+
+
+def np_(x) -> np.ndarray:
+    """A JAX array, a tensor or a numpy array -> numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def t_(x, dtype=None) -> torch.Tensor:
+    """numpy / JAX array -> CPU tensor (copied)."""
+    a = np.array(np.asarray(x), copy=True)
+    t = torch.from_numpy(a)
+    return t if dtype is None else t.to(dtype)
+
+
+def ulp_gap(a, b) -> int:
+    """Largest distance in units in the last place between two float32
+    arrays of the same signs."""
+    a = np.ascontiguousarray(np_(a), np.float32).view(np.int32)
+    b = np.ascontiguousarray(np_(b), np.float32).view(np.int32)
+    return int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max()) \
+        if a.size else 0
+
+
+def max_rel(a, b) -> float:
+    a, b = np_(a).astype(np.float64), np_(b).astype(np.float64)
+    if a.size == 0:
+        return 0.0
+    return float((np.abs(a - b) / np.maximum(np.abs(a), 1e-30)).max())
+
+
+def bitwise(a, b) -> bool:
+    a, b = np_(a), np_(b)
+    if a.shape != b.shape:
+        return False
+    if a.dtype.kind == "f":
+        return bool(np.array_equal(a.view(np.int32 if a.itemsize == 4
+                                          else np.int64),
+                                   b.astype(a.dtype).view(
+                                       np.int32 if a.itemsize == 4
+                                       else np.int64)))
+    return bool(np.array_equal(a, b))
