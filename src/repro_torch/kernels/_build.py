@@ -3,9 +3,14 @@
 Each source in ``repro_torch/csrc`` has a plain C entry point (no PyTorch
 headers, so a build takes seconds). At first use every source is
 compiled, all at once, into ``build/repro_torch/<hash>/`` at the root of
-the checkout (or ``$REPRO_TORCH_BUILD``), keyed on a hash of the
-sources and the flags, so an edited source is never served stale. A
-build or load error raises.
+the checkout (or ``$REPRO_TORCH_BUILD``), keyed on a hash of every
+source with its own flags, so an edited source or a changed flag is
+never served stale. A build or load error raises.
+
+``--fmad=false`` (no contraction of a multiply and an add into one FMA)
+applies only to the sources whose plain versions they must match
+bitwise; the attention and scan kernels round differently from their
+plain versions anyway and keep nvcc's default contraction.
 """
 from __future__ import annotations
 
@@ -18,9 +23,18 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("context_pairwise", "density_sort", "masked_aggregate")
+SOURCES = ("context_pairwise", "density_sort", "masked_aggregate",
+           "flash_attention", "rwkv6_scan")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+BITWISE = ("--fmad=false",)
+EXTRA_FLAGS = {"context_pairwise": BITWISE, "density_sort": BITWISE,
+               "masked_aggregate": BITWISE}
+
+
+def flags(name: str) -> tuple:
+    """nvcc's flags for one source."""
+    return FLAGS + EXTRA_FLAGS.get(name, ())
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}
@@ -42,8 +56,9 @@ def _nvcc() -> str:
 
 
 def build_dir() -> Path:
-    h = hashlib.sha256(" ".join(FLAGS).encode())
+    h = hashlib.sha256()
     for name in SOURCES:
+        h.update(f"{name}\0{' '.join(flags(name))}\0".encode())
         h.update((CSRC / f"{name}.cu").read_bytes())
     return _build_root() / h.hexdigest()[:16]
 
@@ -58,7 +73,7 @@ def build_all() -> Dict[str, Path]:
     procs = {}
     for n in todo:
         tmp = out / f"lib{n}.{os.getpid()}.tmp.so"
-        cmd = [_nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [_nvcc(), *flags(n), "-o", str(tmp), str(CSRC / f"{n}.cu")]
         procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT,
                                           text=True))

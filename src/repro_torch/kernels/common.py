@@ -22,7 +22,8 @@ from typing import Dict, Optional, Union
 import torch
 
 LAUNCHES: Dict[str, int] = {"context_pairwise": 0, "budgeted_topk": 0,
-                            "masked_aggregate": 0}
+                            "masked_aggregate": 0, "flash_attention": 0,
+                            "rwkv6_scan": 0}
 
 
 def reset_launches() -> None:

@@ -1,6 +1,7 @@
 """The reference's parameters and policy state, as numpy arrays, turned
 into the port's tensors, so that tests start both packages from the
-same state."""
+same state. LM parameters and serve states are nested dicts of the same
+leaf layout in both packages, so the conversion is a flat copy."""
 from __future__ import annotations
 
 from typing import Mapping
@@ -16,6 +17,23 @@ def from_jax_params(tree: Mapping[str, np.ndarray], device=None
     """A dict of numpy arrays (the reference's parameter pytree after
     ``np.asarray`` on every leaf) -> a dict of tensors, same dtypes."""
     return {k: torch.as_tensor(np.array(v, copy=True), device=device)
+            for k, v in tree.items()}
+
+
+def _leaf_to_tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":     # ml_dtypes' bfloat16: same bits
+        return torch.from_numpy(np.array(a.view(np.uint16), copy=True)
+                                ).view(torch.bfloat16).to(device)
+    return torch.as_tensor(np.array(a, copy=True), device=device)
+
+
+def lm_params_from_jax(tree: Mapping, device=None) -> dict:
+    """The reference's LM parameter pytree (or serve state), a nested dict
+    with every leaf as a numpy array, -> the port's tree of tensors with
+    the same keys, shapes and dtypes (bfloat16 kept bit for bit)."""
+    return {k: (lm_params_from_jax(v, device) if isinstance(v, Mapping)
+                else _leaf_to_tensor(v, device))
             for k, v in tree.items()}
 
 

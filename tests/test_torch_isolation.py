@@ -2,6 +2,8 @@
 ``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``, and the
 deprecated entry-point names of the reference do not appear in it."""
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -24,9 +26,47 @@ def _imports(tree):
                 yield node.module
 
 
+SERVE_SLICE = ("configs/base.py", "configs/qwen2_1_5b.py",
+               "configs/rwkv6_1_6b.py", "models/layers.py",
+               "models/transformer.py", "models/rwkv6.py",
+               "models/registry.py", "models/convert.py",
+               "kernels/flash_attention/ops.py",
+               "kernels/flash_attention/kernel.py",
+               "kernels/flash_attention/ref.py", "kernels/rwkv6_scan/ops.py",
+               "kernels/rwkv6_scan/kernel.py", "kernels/rwkv6_scan/ref.py",
+               "launch/serve.py", "serving/engine.py")
+
+
 def test_port_files_found():
     assert len(PORT_FILES) > 20
     assert (ROOT / "chip_smoke.py").exists()
+    for rel in SERVE_SLICE:
+        assert ROOT / "src" / "repro_torch" / rel in PORT_FILES, rel
+
+
+def test_every_port_module_imports_with_jax_blocked():
+    """Each module of the port imports in a process where ``jax`` and the
+    reference package ``repro`` cannot be imported at all."""
+    mods = [".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+            .removesuffix(".__init__")
+            for p in PORT_FILES if p.name != "chip_smoke.py"]
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import importlib\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print('ok', len(sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

@@ -1,4 +1,4 @@
-"""The three CUDA kernels against their plain PyTorch versions. These
+"""The five CUDA kernels against their plain PyTorch versions. These
 need an NVIDIA GPU (and nvcc to build the kernels at first use); on a
 machine without one they skip. On the card:
 
@@ -89,3 +89,55 @@ def test_masked_aggregate(dev, r, s, d, kind):
     assert common.LAUNCHES["masked_aggregate"] == before + 1
     torch.testing.assert_close(k, masked_aggregate_ref(p, dl, w),
                                rtol=1e-6, atol=1e-6)
+
+
+# B4 tolerance: float32 inputs, the kernel's fmaf chains and online
+# softmax against float32 einsums, 1e-5; bfloat16 inputs, the kernel's
+# output rounded once to bfloat16 against the float32 plain result: one
+# bf16 ulp of values below 4, 2 ** -6.
+@pytest.mark.parametrize("b,s,h,kv,d,causal,window,dtype", [
+    (2, 100, 4, 2, 64, True, 0, torch.float32),
+    (1, 512, 12, 2, 128, True, 0, torch.bfloat16),
+    (1, 300, 4, 1, 128, True, 64, torch.float32),
+    (1, 70, 4, 4, 64, False, 0, torch.float32),
+    (2, 129, 8, 2, 128, True, 17, torch.bfloat16),
+])
+def test_flash_attention(dev, b, s, h, kv, d, causal, window, dtype):
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    gen = torch.Generator(device=dev).manual_seed(s)
+    q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, s, kv, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, s, kv, d), generator=gen, device=dev).to(dtype)
+    before = common.LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert common.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    f32 = torch.float32
+    want = attention_ref(*(a.transpose(1, 2).to(f32) for a in (q, k, v)),
+                         causal=causal, window=window).transpose(1, 2)
+    tol = 1e-5 if dtype == f32 else 2 ** -6
+    torch.testing.assert_close(got.to(f32), want, rtol=tol, atol=tol)
+
+
+# B5 tolerance: the kernel's fused y = sum_i r_i (C_i + u_i k_i v_j) and
+# the plain version's two einsums sum in another order over 64 terms of
+# values up to ~50: 1e-4 absolute and relative.
+@pytest.mark.parametrize("b,h,t,dtype", [(2, 3, 100, torch.float32),
+                                         (1, 4, 512, torch.bfloat16),
+                                         (1, 1, 1, torch.float32)])
+def test_rwkv6_scan(dev, b, h, t, dtype):
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+    gen = torch.Generator(device=dev).manual_seed(t)
+    r, k, v = (torch.randn((b, h, t, 64), generator=gen, device=dev)
+               .to(dtype) for _ in range(3))
+    lw = -torch.exp(torch.randn((b, h, t, 64), generator=gen, device=dev)
+                    * 0.5 - 2.0)
+    u = torch.randn((h, 64), generator=gen, device=dev) * 0.2
+    before = common.LAUNCHES["rwkv6_scan"]
+    y, fin = rwkv6_scan(r, k, v, lw, u)
+    assert common.LAUNCHES["rwkv6_scan"] == before + 1
+    wy, wf = rwkv6_scan_ref(r, k, v, lw, u)
+    torch.testing.assert_close(y, wy, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(fin, wf, rtol=1e-4, atol=1e-4)
