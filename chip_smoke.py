@@ -8,11 +8,12 @@
                                       # (kernel time by name, device
                                       # busy share), and a depth sweep
                                       # of prefill against decode steps
+                                      # of qwen2 and rwkv6
 
 Phases, in order; any failure exits non-zero before a result is printed:
 
 1. header: the card (nvidia-smi), torch and CUDA versions; TF32 off;
-2. build the five CUDA kernels from ``src/repro_torch/csrc``;
+2. build the six CUDA kernels from ``src/repro_torch/csrc``;
 3. each HFL kernel against its plain PyTorch version on the card, at the
    main path's shapes and at awkward ones, with its device time (summed
    kernel time under torch.profiler, with the L2 cache flushed before
@@ -30,7 +31,8 @@ Phases, in order; any failure exits non-zero before a result is printed:
 5. the HFL port on the CPU against the port on CUDA (``paper`` preset);
 6. flash_attention against its plain float32 version at the qwen2-1.5b
    prompt's shapes (8, 512, 12 heads, 2 KV heads, 128): bf16 and f32
-   causal, bf16 with window 128; timed beside SDPA;
+   causal, bf16 with window 128; timed beside SDPA; then bf16 at the
+   mixtral-8x22b prompt's (8, 512, 48, 8, 128), checked and timed;
 7. rwkv6_scan against its plain per-step version at the rwkv6-1.6b
    prompt's shapes (8, 32 heads, 512, 64, 64), bf16 r/k/v. Phases 6 and
    7 time with CUDA events around loops of calls (L2 flushed, the
@@ -45,11 +47,23 @@ Phases, in order; any failure exits non-zero before a result is printed:
 10. rwkv6-1.6b served the same way, 24 rwkv6_scan launches in its
     prefill, then the reference launcher's token-by-token state rebuild;
     its prefill against token-by-token steps in float32;
-11. the serve slice on the CPU against CUDA (both models at
-    ``reduced()``, float32).
+11. the serve slice on the CPU against CUDA (qwen2, rwkv6 and mixtral at
+    ``reduced()``, float32; mixtral with a 96-token prompt against its
+    reduced window of 64, so that the flash kernel's window and the
+    decode mask both cut);
+12. moe_router against its plain version at the mixtral prefill's
+    (4096, 8, 2), a decode step's (8, 8, 2), a ragged (1000, 8, 2),
+    kimi-k2's width (4096, 384, 8), rows of exact ties (f32 and bf16)
+    and rows whose probabilities underflow; timed as phase 3 times;
+13. mixtral-8x22b served at full width and 8 of its 56 layers in bf16
+    (``launch.serve.run``: batch 8, 512-token prompts, 32 greedy tokens)
+    after the earlier phases' models are freed: moe_router launched 8
+    times a forward (8 x 32 in all), flash_attention 8 times, peak
+    memory; its prefill against token-by-token decode steps in bf16 and
+    in float32 (4 layers, the float32 weights of 8 do not fit).
 
-Phases 4, 8, 9 and 10 each zero the launch counts just before their run
-and read them just after.
+Phases 4, 8, 9, 10 and 13 each zero the launch counts just before their
+run and read them just after.
 
 The last three lines are the card's name and power limit, a JSON line
 of per-kernel numbers, and ``{"ok": true, "device": {...}}``. Needs no
@@ -57,6 +71,7 @@ network and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -84,7 +99,20 @@ SCAN_TOL = 1e-4
 # 2 x 64 tokens on an H100, bf16 rounding of 28 layers' activations), and
 # rwkv6-1.6b in float32 (measured 6.6e-3 at 2 x 512; its layers amplify
 # differences, so its bf16 forms decorrelate and only float32 is gated)
-STEP_TOL = {"qwen2-1.5b": 0.25, "rwkv6-1.6b": 2e-2}
+STEP_TOL = {"qwen2-1.5b": 0.25, "rwkv6-1.6b": 2e-2,
+            # mixtral at 8 layers in bf16, rows whose last token is routed
+            # alike in both forms: as qwen2's (measured 0.098-0.134 at 8 x
+            # 64 on an H100; a row whose last token took another expert
+            # read 1.41-1.53); in float32 at 4 layers (measured 3.2e-5 at
+            # 2 x 64 and 3.9e-5 at 8 x 64, no routing difference)
+            "mixtral-8x22b": 0.25, "mixtral-8x22b-f32": 1e-3}
+# B6 against its plain version: gates from float32 softmaxes summed in
+# another order, values in [0, 1]; each row's sum; the probability gap
+# under which two experts' order is not decided by the plain version
+ROUTER_GATE_TOL = 1e-6
+ROUTER_SUM_TOL = 1e-5
+ROUTER_TIE_GAP = 1e-6
+MIXTRAL_LAYERS = 8              # of 56: 40.9 GB of bf16 weights
 # reduced models in float32, CPU against CUDA: 2 layers' float32 sums in
 # another order, logits up to ~4 (measured 1.5e-5 on the H100)
 LM_CPU_TOL = 1e-4
@@ -663,6 +691,7 @@ def check_flash_attention(dev):
     plain = event_ms(lambda: attention_ref(q, k, v, causal=True), iters=5)
     lib = event_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True))
+    flash_mixtral(dev)
     nbytes = 2 * (2 * b * h * s * d + 2 * b * kv * s * d)
     ops = 4 * b * h * d * s * (s + 1) // 2
     bnd, by = lm_bound_ms(nbytes, ops, BF16_OPS_PER_S)
@@ -672,6 +701,40 @@ def check_flash_attention(dev):
                 max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bnd,
                 bound_by=by, library_ms=lib, shape=[b, s, h, kv, d],
                 wall_ms=wall, warm_ms=warm)
+
+
+def flash_mixtral(dev) -> None:
+    """B4 at the mixtral-8x22b prompt's shape, (B, S, H, KV, D) = (8, 512,
+    48, 8, 128) bf16, causal, its native window 4096 (which cuts nothing
+    at 512 tokens): checked against the plain float32 version, timed
+    beside SDPA (printed, not in the JSON row)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_kernel
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    f32 = torch.float32
+    q, k, v = (a.transpose(1, 2).contiguous() for a in
+               flash_inputs(dev, 8, 512, 48, 8, 128, torch.bfloat16, 13))
+    got = flash_attention_kernel(q, k, v, causal=True, window=4096)
+    want = attention_ref(q.to(f32), k.to(f32), v.to(f32), causal=True,
+                         window=4096)
+    torch.cuda.synchronize()
+    err = (got.to(f32) - want).abs().max().item()
+    if not torch.isfinite(got).all() or err > FLASH_TOL["bf16"]:
+        fail(f"flash_attention at the mixtral shape differs by {err}")
+    del want
+    ms = event_ms(lambda: flash_attention_kernel(q, k, v, causal=True,
+                                                 window=4096))
+    lib = event_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    nbytes = 2 * (2 * 8 * 48 * 512 * 128 + 2 * 8 * 8 * 512 * 128)
+    bnd, by = lm_bound_ms(nbytes, 4 * 8 * 48 * 128 * 512 * 513 // 2,
+                          BF16_OPS_PER_S)
+    print(f"  flash_attention bf16 at the mixtral-8x22b prompt (8, 512, 48, "
+          f"8, 128), window 4096: max abs err {err:.3e} (tol "
+          f"{FLASH_TOL['bf16']}); kernel {ms * 1e3:.2f} us, SDPA "
+          f"{lib * 1e3:.2f} us, bound {bnd * 1e3:.3f} us ({by})")
 
 
 def check_rwkv6_scan(dev):
@@ -722,26 +785,29 @@ def check_rwkv6_scan(dev):
 
 # -- phases 8-10: the serve slice at full width ------------------------------
 
-def serve_full_width(dev, arch: str, params=None):
-    """``launch.serve.run`` of ``arch`` at full width and depth (bf16,
-    random weights from seed 0): batch 8, a 512-token prompt, 32 greedy
-    tokens, after one short warm-up run. The launch counts are zeroed
-    just before the measured run and read just after it."""
+def serve_full_width(dev, cfg):
+    """``launch.serve.run`` of ``cfg`` at full width (bf16, random weights
+    from seed 0): batch 8, a 512-token prompt, 32 greedy tokens, after
+    one short warm-up run. The launch counts are zeroed just before the
+    measured run and read just after it. Peak device memory is read
+    after the weights are drawn and over the two runs."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels import common
     from repro_torch.launch import serve
     from repro_torch.models import registry as R
-    cfg = get_config(arch)
-    if params is None:
-        t0 = time.perf_counter()
-        params = R.init_params(cfg, 0, device=dev)
-        torch.cuda.synchronize()
-        n = sum(t.numel() for t in leaves(params))
-        nbytes = sum(t.numel() * t.element_size() for t in leaves(params))
-        print(f"  {arch}: {n / 1e9:.3f} B parameters ({cfg.dtype}, "
-              f"{nbytes / 1e9:.2f} GB) drawn in "
-              f"{time.perf_counter() - t0:.2f} s")
+    arch = cfg.name
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = R.init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in leaves(params))
+    nbytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    init_peak = torch.cuda.max_memory_allocated()
+    print(f"  {arch}: {cfg.num_layers} layers, {n / 1e9:.3f} B parameters "
+          f"({cfg.dtype}, {nbytes / 1e9:.2f} GB) drawn in "
+          f"{time.perf_counter() - t0:.2f} s; peak memory while drawing "
+          f"{init_peak / 1e9:.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
     serve.run(cfg, batch=8, prompt_len=64, gen_len=2, seed=1, device=dev,
               params=params)
     torch.cuda.synchronize()
@@ -750,6 +816,8 @@ def serve_full_width(dev, arch: str, params=None):
                     device=dev, params=params)
     torch.cuda.synchronize()
     launches = dict(common.LAUNCHES)
+    mem = dict(init_peak_gb=init_peak / 1e9,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     for name, x in (("prefill", res.prefill_logits), ("decode",
                                                       res.step_logits)):
         if not torch.isfinite(x).all():
@@ -761,10 +829,11 @@ def serve_full_width(dev, arch: str, params=None):
           f"tokens), decode {res.decode_tok_per_s:.2f} tok/s at batch 8 "
           f"({step_ms:.2f} ms a step)"
           + (f", state rebuild {res.rebuild_s * 1e3:.1f} ms" if
-             cfg.arch_type == "ssm" else ""))
+             cfg.arch_type == "ssm" else "")
+          + f"; peak memory serving {mem['peak_gb']:.2f} GB")
     print(f"    launches: {launches}")
     print(f"    sample: {res.tokens[0, :12].tolist()}")
-    return cfg, params, res, launches
+    return cfg, params, res, launches, mem
 
 
 def profile_serve(dev, cfg, params):
@@ -815,11 +884,11 @@ def profile_serve(dev, cfg, params):
                   f"{e.count // n:5d}x  {e.key[:80]}")
 
 
-def _serve_row(cfg, res) -> dict:
-    row = dict(batch=8, prompt=512, generated=32,
+def _serve_row(cfg, res, mem) -> dict:
+    row = dict(batch=8, prompt=512, generated=32, layers=cfg.num_layers,
                prefill_ms=res.prefill_s * 1e3,
                decode_tok_per_s=res.decode_tok_per_s,
-               decode_step_ms=res.decode_s / 31 * 1e3)
+               decode_step_ms=res.decode_s / 31 * 1e3, **mem)
     if cfg.arch_type == "ssm":
         row["rebuild_ms"] = res.rebuild_s * 1e3
     return row
@@ -898,12 +967,25 @@ def rwkv6_prefill_vs_rebuild(res) -> dict:
 
 
 def prefill_vs_steps(dev, arch: str, dtype: str, batch: int,
-                     prompt_len: int, tol: float, layers: int = 0) -> dict:
+                     prompt_len: int, tol: float, layers: int = 0,
+                     params=None) -> dict:
     """``arch`` at full width and depth (or ``layers`` deep) in ``dtype``
-    (random weights, seed 0): the prefill's last-position logits (B4 or
-    B5 over the prompt) against ``serve_step`` fed the prompt token by
-    token from a fresh state (the plain decode path). Fails beyond
-    ``tol``."""
+    (random weights, seed 0, or ``params``): the prefill's last-position
+    logits (B4 or B5 over the prompt) against ``serve_step`` fed the
+    prompt token by token from a fresh state (the plain decode path).
+    Fails beyond ``tol``.
+
+    An MoE model runs with capacity factor E / k, so that no expert can
+    overflow: the two forms are one function only when nothing is
+    dropped, and a prefill of batch x prompt tokens caps an expert at
+    1.25 x tokens x k / E where a decode step of ``batch`` tokens never
+    reaches its cap of 8. Each form's routing is recorded: in bf16 the
+    two forms' rounding differs enough to flip near-tied router choices,
+    and a token sent to another expert is another function. So a row is
+    held to ``tol`` when its last position went to the same experts in
+    both forms in every layer (a flip earlier in the prompt reaches it
+    only through attention); the other rows are counted, and the check
+    fails if no row is left to hold."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
@@ -911,15 +993,21 @@ def prefill_vs_steps(dev, arch: str, dtype: str, batch: int,
     cfg = dataclasses.replace(get_config(arch), dtype=dtype)
     if layers:
         cfg = dataclasses.replace(cfg, num_layers=layers)
-    params = R.init_params(cfg, 0, device=dev)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    if params is None:
+        params = R.init_params(cfg, 0, device=dev)
     gen = torch.Generator(device=dev).manual_seed(4)
     prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                            generator=gen, device=dev, dtype=torch.int32)
     state = R.init_serve_state(cfg, batch, prompt_len, device=dev)
-    pl, _ = R.prefill(params, cfg, {"tokens": prompt}, state)
+    with recorded_routes() as pre:
+        pl, _ = R.prefill(params, cfg, {"tokens": prompt}, state)
     state = R.init_serve_state(cfg, batch, prompt_len, device=dev)
-    for i in range(prompt_len):
-        sl, state = R.serve_step(params, cfg, prompt[:, i:i + 1], state)
+    with recorded_routes() as steps:
+        for i in range(prompt_len):
+            sl, state = R.serve_step(params, cfg, prompt[:, i:i + 1], state)
     a, b = pl[:, -1].float(), sl[:, -1].float()
     if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
         fail(f"{arch} {dtype}: non-finite logits")
@@ -931,28 +1019,242 @@ def prefill_vs_steps(dev, arch: str, dtype: str, batch: int,
           f"against token-by-token steps, last logits max abs gap "
           f"{gap:.3e} on values up to {scale:.2f} (tol {tol}); argmax "
           f"agrees on {agree} of {batch}")
-    if gap > tol:
-        fail(f"{arch} {dtype}: prefill and steps differ by {gap} > {tol}")
+    flips = None
+    row_gap = (a - b).abs().max(-1)[0]
+    held = torch.ones(batch, dtype=torch.bool, device=dev)
+    if cfg.moe is not None:
+        # the expert set each (layer, row, position) was routed to, by the
+        # prefill (one call a layer) and by the steps (one a layer a step)
+        lay, k = cfg.num_layers, cfg.moe.top_k
+        sp = torch.stack(pre).view(lay, batch, prompt_len, k)
+        ss = torch.stack(steps).view(prompt_len, lay, batch, k).permute(
+            1, 2, 0, 3)
+        differ = (sp.sort(-1)[0] != ss.sort(-1)[0]).any(-1)
+        flips = differ.sum((1, 2)).tolist()
+        held = ~differ[:, :, -1].any(0)
+        print(f"    routing differs between the two forms at {flips} of "
+              f"{batch * prompt_len} (row, position)s per layer; rows whose "
+              f"last position is routed alike in every layer "
+              f"{int(held.sum())} of {batch}; last-logit gap per row "
+              f"[{', '.join(f'{g:.3e}' for g in row_gap.tolist())}]")
+        if not held.any():
+            fail(f"{arch} {dtype}: every row's last position was routed "
+                 f"differently by the two forms; nothing left to hold")
+    held_gap = row_gap[held].max().item()
+    if held_gap > tol:
+        fail(f"{arch} {dtype}: prefill and steps differ by {held_gap} > "
+             f"{tol}")
     return dict(dtype=dtype, batch=batch, prompt=prompt_len, gap=gap,
+                held_gap=held_gap, rows_held=int(held.sum()),
+                routing_flips=flips,
                 scale=scale, argmax_agree=agree)
+
+
+# -- phase 12: moe_router against its plain version --------------------------
+
+def router_inputs(dev, t, e, kind, dtype, seed):
+    """(T, E) logits: standard normal; integers in {0, 1, 2} (rows of
+    exact ties); or -200 but one 0 a row (every other probability
+    underflows to 0, so the k-th pick is a tie among zeros)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "ties":
+        x = torch.randint(0, 3, (t, e), generator=gen, device=dev).float()
+    elif kind == "underflow":
+        x = torch.full((t, e), -200.0, device=dev)
+        x[torch.arange(t, device=dev), torch.arange(t, device=dev) % e] = 0.0
+    else:
+        x = torch.randn((t, e), generator=gen, device=dev)
+    return x.to(dtype)
+
+
+def router_agrees(x, k, what):
+    """B6 against its plain version on ``x``. Indices must be equal on
+    every row whose plain probabilities, sorted down to the (k+1)-th, are
+    apart by more than ROUTER_TIE_GAP or exactly equal (a tie: both break
+    it to the lower index); the other rows are counted. Returns (max gate
+    error, undecided rows, rows with a tie)."""
+    import torch
+    from repro_torch.kernels.moe_router.kernel import moe_router_kernel
+    from repro_torch.kernels.moe_router.ref import moe_router_ref
+    g, i = moe_router_kernel(x, k)
+    wg, wi = moe_router_ref(x, k)
+    torch.cuda.synchronize()
+    p = torch.sort(torch.softmax(x.float(), -1), -1, descending=True)[0]
+    gaps = p[:, :k] - p[:, 1:k + 1]
+    decided = ((gaps > ROUTER_TIE_GAP) | (gaps == 0)).all(-1)
+    if not torch.equal(i[decided], wi[decided]):
+        bad = int((i[decided] != wi[decided]).any(-1).sum())
+        fail(f"moe_router indices differ on {bad} decided rows at {what}")
+    # a tie inside the picks goes to the lower index
+    tie = gaps[:, :-1] == 0
+    if (tie & (i[:, 1:] < i[:, :-1])).any():
+        fail(f"moe_router breaks a tie to the higher index at {what}")
+    err = (g - wg).abs().max().item()
+    total = (g.sum(-1) - 1.0).abs().max().item()
+    if err > ROUTER_GATE_TOL or total > ROUTER_SUM_TOL:
+        fail(f"moe_router gates off by {err} (sum by {total}) at {what}")
+    if not ((i >= 0) & (i < x.shape[1])).all():
+        fail(f"moe_router index out of range at {what}")
+    return err, int((~decided).sum()), int((gaps == 0).any(-1).sum())
+
+
+def check_moe_router(dev):
+    """B6 at the mixtral prefill's (T, E, k) = (4096, 8, 2), a decode
+    step's (8, 8, 2), a ragged (1000, 8, 2), kimi-k2's (4096, 384, 8), rows
+    of exact ties in f32 and bf16 and underflowing rows. Timed at the
+    prefill's and the decode's shapes in float32, the dtype of the
+    router's logits on the serve path."""
+    import torch
+    from repro_torch.kernels.moe_router.kernel import moe_router_kernel
+    from repro_torch.kernels.moe_router.ref import moe_router_ref
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(4096, 8, 2, "normal", f32), (8, 8, 2, "normal", f32),
+             (1000, 8, 2, "normal", f32), (4096, 384, 8, "normal", f32),
+             (4096, 8, 2, "normal", bf16), (1024, 8, 2, "ties", f32),
+             (1024, 8, 2, "ties", bf16), (512, 384, 8, "ties", bf16),
+             (64, 8, 2, "underflow", f32), (64, 384, 8, "underflow", f32)]
+    worst = 0.0
+    for n, (t, e, k, kind, dtype) in enumerate(cases):
+        what = (t, e, k, kind, str(dtype)[6:])
+        x = router_inputs(dev, t, e, kind, dtype, 20 + n)
+        err, undecided, tied = router_agrees(x, k, what)
+        worst = max(worst, err)
+        print(f"  moe_router {what}: max gate err {err:.3e}; rows with a "
+              f"tie {tied}, rows left undecided (a gap <= {ROUTER_TIE_GAP}) "
+              f"{undecided} of {t}")
+    times = {}
+    for t in (4096, 8):
+        x = router_inputs(dev, t, 8, "normal", f32, 1)
+        call = lambda: moe_router_kernel(x, 2)
+        times[t] = dict(ms=device_ms(call), warm_ms=device_ms(call,
+                                                               cold=False),
+                        wall_ms=cuda_ms(call, 200),
+                        plain_ms=device_ms(lambda: moe_router_ref(x, 2)))
+        nbytes = 4 * t * 8 + 2 * 4 * t * 2
+        times[t]["bound_ms"], times[t]["bound_by"] = lm_bound_ms(
+            nbytes, t * (8 * (5 + 2) + 2 * 2), FP32_OPS_PER_S)
+    d = times[8]
+    print(f"  moe_router at a decode step (8, 8, 2): kernel "
+          f"{d['ms'] * 1e3:.2f} us ({d['warm_ms'] * 1e3:.2f} us warm; "
+          f"{d['wall_ms'] * 1e3:.2f} us a call from Python), plain "
+          f"{d['plain_ms'] * 1e3:.2f} us, bound {d['bound_ms'] * 1e3:.4f} "
+          f"us ({d['bound_by']})")
+    p = times[4096]
+    return dict(name="moe_router", route="cuda",
+                source="src/repro_torch/csrc/moe_router.cu",
+                replaces="src/repro/kernels/moe_router/kernel.py:43",
+                max_abs_err=worst, ms=p["ms"], plain_ms=p["plain_ms"],
+                bound_ms=p["bound_ms"], bound_by=p["bound_by"],
+                library_ms=None, shape=[4096, 8, 2], wall_ms=p["wall_ms"],
+                warm_ms=p["warm_ms"])
+
+
+# -- phase 13: mixtral-8x22b at full width -----------------------------------
+
+def mixtral_full_width(dev, profile: bool):
+    """mixtral-8x22b at full width and MIXTRAL_LAYERS of its 56 layers,
+    bf16, through ``launch.serve.run`` (``serve_full_width``), after the
+    earlier phases' weights are freed. B6 runs once a layer in each
+    forward (the prefill and 31 decode steps), B4 once a layer in the
+    prefill. Then its prefill against token-by-token decode: in bf16 at
+    the served depth, and in float32 at 4 layers (8 would need 82 GB)."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("mixtral-8x22b"),
+                              num_layers=MIXTRAL_LAYERS)
+    cfg, params, res, launches, mem = serve_full_width(dev, cfg)
+    want = cfg.num_layers * (1 + 31)
+    if launches["moe_router"] != want:
+        fail(f"moe_router launched {launches['moe_router']} times, not "
+             f"{want} ({cfg.num_layers} layers x (prefill + 31 steps))")
+    if launches["flash_attention"] != cfg.num_layers:
+        fail(f"flash_attention launched {launches['flash_attention']} "
+             f"times in one mixtral prefill of {cfg.num_layers} layers")
+    row = _serve_row(cfg, res, mem)
+    row["launches"] = launches
+    row["dropped"] = prefill_drops(dev, cfg, params)
+    if profile:
+        profile_serve(dev, cfg, params)
+    row["prefill_vs_steps"] = prefill_vs_steps(
+        dev, "mixtral-8x22b", "bfloat16", 8, 64, STEP_TOL["mixtral-8x22b"],
+        cfg.num_layers, params=params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["prefill_vs_steps_f32"] = prefill_vs_steps(
+        dev, "mixtral-8x22b", "float32", 2, 64,
+        STEP_TOL["mixtral-8x22b-f32"], 4)
+    return row, launches
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """For the block's duration ``models.moe.route`` also keeps each
+    call's expert indices (T, k), in call order, in the yielded list: a
+    check's view of the routing, outside every counted or timed run."""
+    from repro_torch.models import moe
+    calls = []
+    route = moe.route
+
+    def recording(p, x2d, mcfg, aux=False):
+        out = route(p, x2d, mcfg, aux)
+        calls.append(out[1])
+        return out
+
+    moe.route = recording
+    try:
+        yield calls
+    finally:
+        moe.route = route
+
+
+def prefill_drops(dev, cfg, params) -> list:
+    """Assignments dropped past capacity in each MoE layer of the served
+    prefill (batch 8 x 512 tokens, the prompt ``launch.serve.run`` draws
+    from seed 0), read in one more prefill, after the launch counts."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models import registry as R
+    gen = torch.Generator(device=dev).manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab_size, (8, 512), generator=gen,
+                           device=dev, dtype=torch.int32)
+    with recorded_routes() as calls:
+        R.prefill(params, cfg, {"tokens": prompt},
+                  R.init_serve_state(cfg, 8, 512, device=dev))
+    loads = [torch.bincount(idx.reshape(-1), minlength=cfg.moe.num_experts)
+             for idx in calls]
+    cap = moe._capacity(8 * 512, cfg.moe)
+    dropped = [int((ld - cap).clamp(min=0).sum()) for ld in loads]
+    print(f"  {cfg.name} prefill: expert capacity {cap}; largest load per "
+          f"layer {[int(ld.max()) for ld in loads]}; assignments dropped "
+          f"per layer {dropped} of {8 * 512 * cfg.moe.top_k}")
+    return dropped
 
 
 # -- phase 11: the serve slice on CPU against CUDA ---------------------------
 
 def lm_cpu_vs_cuda(dev):
-    """Both models at ``reduced()`` (float32, TF32 off): the same
+    """The three models at ``reduced()`` (float32, TF32 off): the same
     parameters and prompt through ``launch.serve.run`` on the CPU (plain
-    versions) and on CUDA (the kernels)."""
+    versions) and on CUDA (the kernels). mixtral's 96-token prompt is
+    longer than its reduced window of 64, so B4's window and the decode
+    mask both cut."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import registry as R
     out = {}
-    for arch in ("qwen2-1.5b", "rwkv6-1.6b"):
+    for arch, plen in (("qwen2-1.5b", 64), ("rwkv6-1.6b", 64),
+                       ("mixtral-8x22b", 96)):
         cfg = get_config(arch).reduced()
         params = R.init_params(cfg, 0, device="cpu")
         gen = torch.Generator().manual_seed(3)
-        prompt = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen,
+        prompt = torch.randint(0, cfg.vocab_size, (4, plen), generator=gen,
                                dtype=torch.int32)
         a = serve.run(cfg, gen_len=16, device="cpu", params=params,
                       prompt=prompt)
@@ -963,7 +1265,8 @@ def lm_cpu_vs_cuda(dev):
                 .abs().max().item()
                 for f in ("prefill_logits", "logits", "step_logits")}
         flips = int((a.tokens != b.tokens.cpu()).sum())
-        print(f"  {arch} reduced: max logit gap prefill "
+        print(f"  {arch} reduced ({plen}-token prompt): max logit gap "
+              f"prefill "
               f"{gaps['prefill_logits']:.3e}, first token "
               f"{gaps['logits']:.3e}, decode {gaps['step_logits']:.3e} "
               f"(tol {LM_CPU_TOL}); greedy tokens differing {flips} of "
@@ -1049,11 +1352,13 @@ def main() -> int:
         print_row(r)
 
     print("phase 8: qwen2-1.5b serve at full width (launch.serve.run)")
-    qcfg, qparams, qres, qlaunch = serve_full_width(dev, "qwen2-1.5b")
+    from repro_torch.configs import get_config
+    qcfg, qparams, qres, qlaunch, qmem = serve_full_width(
+        dev, get_config("qwen2-1.5b"))
     if qlaunch["flash_attention"] != qcfg.num_layers:
         fail(f"flash_attention launched {qlaunch['flash_attention']} times "
              f"in one qwen2 prefill of {qcfg.num_layers} layers")
-    serve_rows = {"qwen2-1.5b": _serve_row(qcfg, qres)}
+    serve_rows = {"qwen2-1.5b": _serve_row(qcfg, qres, qmem)}
     if profile:
         profile_serve(dev, qcfg, qparams)
 
@@ -1065,11 +1370,12 @@ def main() -> int:
     del qparams
 
     print("phase 10: rwkv6-1.6b serve at full width (launch.serve.run)")
-    rcfg, rparams, rres, rlaunch = serve_full_width(dev, "rwkv6-1.6b")
+    rcfg, rparams, rres, rlaunch, rmem = serve_full_width(
+        dev, get_config("rwkv6-1.6b"))
     if rlaunch["rwkv6_scan"] != rcfg.num_layers:
         fail(f"rwkv6_scan launched {rlaunch['rwkv6_scan']} times in one "
              f"rwkv6 prefill of {rcfg.num_layers} layers")
-    serve_rows["rwkv6-1.6b"] = _serve_row(rcfg, rres)
+    serve_rows["rwkv6-1.6b"] = _serve_row(rcfg, rres, rmem)
     serve_rows["rwkv6-1.6b"]["prefill_vs_rebuild_bf16"] = \
         rwkv6_prefill_vs_rebuild(rres)
     if profile:
@@ -1083,11 +1389,23 @@ def main() -> int:
     print("phase 11: serve slice on CPU against CUDA (reduced, float32)")
     serve_rows["cpu_vs_cuda"] = lm_cpu_vs_cuda(dev)
 
+    print("phase 12: moe_router against its plain version")
+    rows.append(check_moe_router(dev))
+    print_row(rows[-1])
+
+    print(f"phase 13: mixtral-8x22b serve at full width, {MIXTRAL_LAYERS} "
+          f"layers (launch.serve.run)")
+    serve_rows["mixtral-8x22b"], mlaunch = mixtral_full_width(dev, profile)
+
+    # each kernel's launches on its own main path: B1-B3 the HFL run, B4
+    # the qwen2 serve (the shape its row is timed at; 8 more in mixtral's),
+    # B5 the rwkv6 serve, B6 the mixtral serve
     counts = {**{k: launches[k] for k in ("context_pairwise",
                                           "budgeted_topk",
                                           "masked_aggregate")},
               "flash_attention": qlaunch["flash_attention"],
-              "rwkv6_scan": rlaunch["rwkv6_scan"]}
+              "rwkv6_scan": rlaunch["rwkv6_scan"],
+              "moe_router": mlaunch["moe_router"]}
     print("kernels: " + " ".join(f"{k}={v}" for k, v in counts.items()))
     for r in rows:
         r["launches"] = counts[r["name"]]

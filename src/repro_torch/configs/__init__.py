@@ -12,6 +12,7 @@ from repro_torch.configs.base import (INPUT_SHAPES, InputShape, ModelConfig,
 
 # arch id -> module, for the architectures the port runs so far
 _ARCH_MODULES = {
+    "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
     "qwen2-1.5b": "repro_torch.configs.qwen2_1_5b",
     "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
 }

@@ -9,8 +9,8 @@ never served stale. A build or load error raises.
 
 ``--fmad=false`` (no contraction of a multiply and an add into one FMA)
 applies only to the sources whose plain versions they must match
-bitwise; the attention and scan kernels round differently from their
-plain versions anyway and keep nvcc's default contraction.
+bitwise; the attention, scan and router kernels round differently from
+their plain versions anyway and keep nvcc's default contraction.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("context_pairwise", "density_sort", "masked_aggregate",
-           "flash_attention", "rwkv6_scan")
+           "flash_attention", "rwkv6_scan", "moe_router")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BITWISE = ("--fmad=false",)

@@ -31,21 +31,42 @@ def dense_init(gen: torch.Generator, shape, scale: Optional[float] = None,
     fan_in = shape[0] if len(shape) >= 2 else 1
     if scale is None:
         scale = 1.0 / math.sqrt(fan_in)
-    return (torch.randn(shape, generator=gen, device=device) * scale
-            ).to(dtype)
+    x = torch.randn(shape, generator=gen, device=device)
+    return x.mul_(scale).to(dtype)      # in place: one float32 temporary
 
 
 def embed_init(gen: torch.Generator, shape, dtype=torch.float32,
                device=None) -> torch.Tensor:
-    return (torch.randn(shape, generator=gen, device=device) * 0.02
-            ).to(dtype)
+    x = torch.randn(shape, generator=gen, device=device)
+    return x.mul_(0.02).to(dtype)
 
 
-def stack_trees(trees):
-    """Per-layer parameter dicts -> one dict with a leading layer axis."""
-    if isinstance(trees[0], dict):
-        return {k: stack_trees([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def stack_layers(make_layer, n: int) -> dict:
+    """``n`` per-layer parameter dicts from ``make_layer()``, drawn in
+    order, as one dict with a leading layer axis. Each stacked leaf is
+    allocated once and filled layer by layer, so beside the stack only
+    one layer's tensors are alive (stacking a list of layers would hold
+    every tensor twice: 2 x 40 GB for 8 mixtral-8x22b layers)."""
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        return t.new_empty((n, *t.shape))
+
+    def fill(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                fill(dst[k], v, i)
+            else:
+                dst[k][i].copy_(v)
+
+    out = None
+    for i in range(n):
+        layer = make_layer()
+        if out is None:
+            out = alloc(layer)
+        fill(out, layer, i)
+        del layer
+    return out
 
 
 def layer_params(params: dict, i: int) -> dict:

@@ -1,6 +1,7 @@
 """Uniform per-architecture API of the serving slice, mirroring the
-reference's ``models/registry.py`` for the ``dense`` and ``ssm`` arch
-types: ``init_params``, ``init_serve_state``, ``serve_step``,
+reference's ``models/registry.py`` for the ``dense``, ``moe`` and
+``ssm`` arch types (``moe`` goes through the transformer, as ``dense``
+does): ``init_params``, ``init_serve_state``, ``serve_step``,
 ``prefill`` and ``serve_cache_len``. Other arch types raise until they
 are ported.
 
@@ -18,7 +19,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import rwkv6, transformer
 
-PORTED_ARCH_TYPES = ("dense", "ssm")
+PORTED_ARCH_TYPES = ("dense", "moe", "ssm")
 
 
 def _check(cfg: ModelConfig) -> None:

@@ -86,8 +86,8 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
     return {
         "embed": L.embed_init(gen, (cfg.vocab_size, cfg.d_model), dt,
                               device=device),
-        "layers": L.stack_trees([init_layer(gen, cfg, device)
-                                 for _ in range(cfg.num_layers)]),
+        "layers": L.stack_layers(lambda: init_layer(gen, cfg, device),
+                                 cfg.num_layers),
         "final_norm": torch.zeros((cfg.d_model,), dtype=dt, device=device),
         "lm_head": L.dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                 dtype=dt, device=device),

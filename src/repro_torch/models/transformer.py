@@ -1,13 +1,14 @@
-"""Decoder-only transformer LM (dense), mirroring the reference's
-``models/transformer.py``: training forward, prefill (builds the KV cache)
-and single-token decode over a full-length cache or a sliding-window
-ring buffer.
+"""Decoder-only transformer LM (dense and MoE), mirroring the
+reference's ``models/transformer.py``: training forward, prefill (builds
+the KV cache) and single-token decode over a full-length cache or a
+sliding-window ring buffer.
 
 Layer parameters keep the reference's leading ``num_layers`` axis; the
 forward loops over layers in Python. The prompt's attention (prefill and
 the training forward) runs through the flash attention kernel; decode
-attends over the cache in plain torch. MoE and VLM configurations raise
-until they are ported.
+attends over the cache in plain torch. An MoE config's layers take the
+MoE block (``models/moe.py``, its router through the router kernel) in
+place of the MLP. VLM configurations raise until they are ported.
 """
 from __future__ import annotations
 
@@ -17,12 +18,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.moe import init_moe, moe_block
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE layers are not ported "
-                                  "yet")
     if cfg.num_patches:
         raise NotImplementedError(f"{cfg.name}: the VLM patch prefix is not "
                                   "ported yet")
@@ -31,14 +30,18 @@ def _check_ported(cfg: ModelConfig) -> None:
 def init_layer(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
     dt = cfg.torch_dtype
     hd = cfg.resolved_head_dim
-    return {
+    p = {
         "ln1": torch.zeros((cfg.d_model,), dtype=dt, device=device),
         "ln2": torch.zeros((cfg.d_model,), dtype=dt, device=device),
         "attn": L.init_attention(gen, cfg.d_model, cfg.num_heads,
                                  cfg.num_kv_heads, hd, cfg.qkv_bias, dt,
                                  device=device),
-        "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dt, device=device),
     }
+    if cfg.moe is not None:
+        p["moe"] = init_moe(gen, cfg.d_model, cfg.moe, dt, device=device)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, dt, device=device)
+    return p
 
 
 def init_lm(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
@@ -47,8 +50,8 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
     p = {
         "embed": L.embed_init(gen, (cfg.vocab_size, cfg.d_model), dt,
                               device=device),
-        "layers": L.stack_trees([init_layer(gen, cfg, device)
-                                 for _ in range(cfg.num_layers)]),
+        "layers": L.stack_layers(lambda: init_layer(gen, cfg, device),
+                                 cfg.num_layers),
         "final_norm": torch.zeros((cfg.d_model,), dtype=dt, device=device),
     }
     if not cfg.tie_embeddings:
@@ -58,7 +61,10 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
 
 
 def _layer_apply(cfg: ModelConfig, lp: dict, x, positions, mask=None,
-                 window: int = 0, kv_cache=None, cache_positions=None):
+                 window: int = 0, kv_cache=None, cache_positions=None,
+                 aux: bool = False):
+    """One layer: (x, the MoE aux loss when ``aux`` asks and the layer
+    has one, else None)."""
     h = L.attention_block(
         lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps),
         num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
@@ -66,8 +72,12 @@ def _layer_apply(cfg: ModelConfig, lp: dict, x, positions, mask=None,
         positions=positions, mask=mask, window=window, kv_cache=kv_cache,
         cache_positions=cache_positions)
     x = x + h
-    return x + L.mlp_block(lp["mlp"], L.rms_norm(x, lp["ln2"],
-                                                 cfg.norm_eps))
+    y = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    if cfg.moe is None:
+        return x + L.mlp_block(lp["mlp"], y), None
+    b, s, d = y.shape
+    out, loss = moe_block(lp["moe"], y.reshape(b * s, d), cfg.moe, aux=aux)
+    return x + out.reshape(b, s, d), loss
 
 
 def embed_inputs(params: dict, cfg: ModelConfig,
@@ -91,17 +101,20 @@ def unembed(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def forward_lm(params: dict, cfg: ModelConfig, tokens: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Training/prefill forward: (logits (B, S, V), aux loss 0)."""
+    """Training/prefill forward: (logits (B, S, V), the sum of the MoE
+    layers' load-balance losses; 0 for a dense model)."""
     _check_ported(cfg)
     x = embed_inputs(params, cfg, tokens)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
-        x = _layer_apply(cfg, L.layer_params(params, i), x, positions,
-                         window=cfg.sliding_window)
-    return unembed(params, cfg, x), torch.zeros((), dtype=torch.float32,
-                                                device=x.device)
+        x, loss = _layer_apply(cfg, L.layer_params(params, i), x, positions,
+                               window=cfg.sliding_window, aux=True)
+        if loss is not None:
+            total = total + loss
+    return unembed(params, cfg, x), total
 
 
 # ---------------------------------------------------------------------------
@@ -153,10 +166,10 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     cache_positions = positions % size
     window = cfg.sliding_window if window is None else window
     for i in range(cfg.num_layers):
-        x = _layer_apply(cfg, L.layer_params(params, i), x, positions,
-                         window=window,
-                         kv_cache=(cache["k"][i], cache["v"][i]),
-                         cache_positions=cache_positions)
+        x, _ = _layer_apply(cfg, L.layer_params(params, i), x, positions,
+                            window=window,
+                            kv_cache=(cache["k"][i], cache["v"][i]),
+                            cache_positions=cache_positions)
     cache = dict(cache)
     bidx = torch.arange(b, device=x.device)[:, None]
     cache["kpos"][bidx, cache_positions.long()] = positions
@@ -182,9 +195,10 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     mask = L.attention_scores_mask(positions, kpos, k_valid=kpos >= 0,
                                    sliding_window=eff_window)
     for i in range(cfg.num_layers):
-        x = _layer_apply(cfg, L.layer_params(params, i), x, positions,
-                         mask=mask, kv_cache=(cache["k"][i], cache["v"][i]),
-                         cache_positions=cache_positions)
+        x, _ = _layer_apply(cfg, L.layer_params(params, i), x, positions,
+                            mask=mask,
+                            kv_cache=(cache["k"][i], cache["v"][i]),
+                            cache_positions=cache_positions)
     cache = dict(cache)
     cache["pos"] = cache["pos"] + 1
     return unembed(params, cfg, x), cache

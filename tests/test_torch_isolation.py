@@ -34,7 +34,10 @@ SERVE_SLICE = ("configs/base.py", "configs/qwen2_1_5b.py",
                "kernels/flash_attention/kernel.py",
                "kernels/flash_attention/ref.py", "kernels/rwkv6_scan/ops.py",
                "kernels/rwkv6_scan/kernel.py", "kernels/rwkv6_scan/ref.py",
-               "launch/serve.py", "serving/engine.py")
+               "launch/serve.py", "serving/engine.py",
+               "configs/mixtral_8x22b.py", "models/moe.py",
+               "kernels/moe_router/ops.py", "kernels/moe_router/kernel.py",
+               "kernels/moe_router/ref.py")
 
 
 def test_port_files_found():

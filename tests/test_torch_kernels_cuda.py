@@ -1,4 +1,4 @@
-"""The five CUDA kernels against their plain PyTorch versions. These
+"""The six CUDA kernels against their plain PyTorch versions. These
 need an NVIDIA GPU (and nvcc to build the kernels at first use); on a
 machine without one they skip. On the card:
 
@@ -141,3 +141,44 @@ def test_rwkv6_scan(dev, b, h, t, dtype):
     wy, wf = rwkv6_scan_ref(r, k, v, lw, u)
     torch.testing.assert_close(y, wy, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(fin, wf, rtol=1e-4, atol=1e-4)
+
+
+# B6: indices equal to the plain version's on every row whose sorted
+# probabilities, down to the (k+1)-th, are apart by more than 1e-6 or
+# exactly equal (a tie, which both resolve to the lower index); gates
+# within 1e-6 (float32 softmaxes summed in another order), each row's
+# sum 1 within 1e-5.
+@pytest.mark.parametrize("t,e,k,kind,dtype", [
+    (4096, 8, 2, "normal", torch.float32),
+    (8, 8, 2, "normal", torch.bfloat16),
+    (1000, 8, 2, "normal", torch.float32),
+    (4096, 384, 8, "normal", torch.float32),
+    (512, 8, 2, "ties", torch.float32),
+    (512, 64, 8, "ties", torch.bfloat16),
+    (64, 8, 2, "underflow", torch.float32),
+])
+def test_moe_router(dev, t, e, k, kind, dtype):
+    from repro_torch.kernels.moe_router.ops import moe_router
+    from repro_torch.kernels.moe_router.ref import moe_router_ref
+    gen = torch.Generator(device=dev).manual_seed(t + e)
+    if kind == "ties":
+        x = torch.randint(0, 3, (t, e), generator=gen, device=dev).float()
+    else:
+        x = torch.randn((t, e), generator=gen, device=dev)
+    if kind == "underflow":
+        x[:, 1:] -= 200.0
+    x = x.to(dtype)
+    before = common.LAUNCHES["moe_router"]
+    g, i = moe_router(x, k)
+    assert common.LAUNCHES["moe_router"] == before + 1
+    wg, wi = moe_router_ref(x, k)
+    p = torch.sort(torch.softmax(x.float(), -1), -1, descending=True)[0]
+    gaps = (p[:, :k] - p[:, 1:k + 1]).abs()
+    decided = ((gaps > 1e-6) | (gaps == 0)).all(-1)
+    assert torch.equal(i[decided], wi[decided])
+    assert decided.float().mean().item() > 0.99
+    torch.testing.assert_close(g, wg, rtol=0, atol=1e-6)
+    torch.testing.assert_close(g.sum(-1), torch.ones_like(g[:, 0]), rtol=0,
+                               atol=1e-5)
+    if kind == "underflow":
+        assert (i[:, 0] == 0).all() and (i[:, 1] == 1).all()
