@@ -30,9 +30,14 @@ Phases, in order; any failure exits non-zero before a result is printed:
    timed at the main path's shapes here, at every capacity the run used;
 5. the HFL port on the CPU against the port on CUDA (``paper`` preset);
 6. flash_attention against its plain float32 version at the qwen2-1.5b
-   prompt's shapes (8, 512, 12 heads, 2 KV heads, 128): bf16 and f32
-   causal, bf16 with window 128; timed beside SDPA; then bf16 at the
-   mixtral-8x22b prompt's (8, 512, 48, 8, 128), checked and timed;
+   prompt's shapes (8, 512, 12 heads, 2 KV heads, 128), on the model
+   layout's transposed views as the serve path passes them: bf16 (the
+   wgmma kernel) and f32 (the scalar kernel) causal, bf16 with window
+   128, bf16 once more on contiguous tensors; each with its error margin
+   against ``FLASH_TOL``; the bf16 kernel's ptxas registers and spills
+   and its shared memory; timed beside SDPA with its TFLOP/s and share
+   of the bound; then bf16 at the mixtral-8x22b prompt's (8, 512, 48, 8,
+   128), checked and timed the same way;
 7. rwkv6_scan against its plain per-step version at the rwkv6-1.6b
    prompt's shapes (8, 32 heads, 512, 64, 64), bf16 r/k/v. Phases 6 and
    7 time with CUDA events around loops of calls (L2 flushed, the
@@ -647,54 +652,111 @@ def flash_inputs(dev, b, s, h, kv, d, dtype, seed):
             for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d))]
 
 
-def check_flash_attention(dev):
-    """B4 at the qwen2-1.5b prompt's shapes, (B, S, H, KV, D) = (8, 512, 12,
-    2, 128): bf16 and f32 causal, and bf16 causal with window 128,
-    against the plain float32 version on the same inputs. Timed in bf16,
-    causal, as the serve path calls it."""
+def flash_views(dev, b, s, h, kv, d, dtype, seed):
+    """The kernel's (B, H, S, D) views of model-layout inputs, as
+    ``ops.flash_attention`` passes them (non-contiguous, no copy)."""
+    return [a.transpose(1, 2)
+            for a in flash_inputs(dev, b, s, h, kv, d, dtype, seed)]
+
+
+def flash_agrees(q, k, v, window, tol, what) -> float:
+    """B4 causal against the plain float32 version; the max abs error."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_kernel
     from repro_torch.kernels.flash_attention.ref import attention_ref
     f32 = torch.float32
+    got = flash_attention_kernel(q, k, v, causal=True, window=window)
+    want = attention_ref(q.to(f32), k.to(f32), v.to(f32), causal=True,
+                         window=window)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        fail(f"flash_attention not finite ({what})")
+    err = (got.to(f32) - want).abs()
+    rel = (err / want.abs().clamp(min=1e-3)).max().item()
+    mx = err.max().item()
+    print(f"  flash_attention {what}: max abs err {mx:.3e}, max rel err "
+          f"{rel:.3e} against the plain f32 version (tol {tol}, margin "
+          f"{tol / max(mx, 1e-30):.2f}x)")
+    if mx > tol:
+        fail(f"flash_attention differs by {mx} > {tol} ({what})")
+    return mx
+
+
+def flash_ptxas() -> None:
+    """nvcc's ``-Xptxas -v`` lines of the bf16 kernel at each head dim:
+    registers, spills, and the dynamic shared memory it launches with."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.kernel import \
+        wgmma_smem_bytes
+    if "flash_attention" not in _build.BUILD_LOG:
+        print("  flash_attention_wgmma: built before this run, no ptxas log")
+    name = None
+    for line in _build.BUILD_LOG.get("flash_attention", "").splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "wgmma" in line else None
+        elif name and ("registers" in line or "spill" in line):
+            d = int(name.split("wgmmaILi")[1].split("EEEv")[0])
+            extra = (f"; {wgmma_smem_bytes(d)} bytes of dynamic shared "
+                     f"memory" if "registers" in line else "")
+            print(f"  flash_attention_wgmma<D={d}>: "
+                  f"{line.replace('ptxas info    :', '').strip()}{extra}")
+
+
+def flash_rates(ms: float, nbytes: float, ops: float, what: str):
+    """The bound, and the achieved TFLOP/s and share of the bound."""
+    bnd, by = lm_bound_ms(nbytes, ops, BF16_OPS_PER_S)
+    print(f"  flash_attention bf16 {what}: {ops / ms / 1e9:.1f} TFLOP/s, "
+          f"{bnd / ms:.3f} of the bound {bnd * 1e3:.3f} us ({by})")
+    return bnd, by
+
+
+def check_flash_attention(dev):
+    """B4 at the qwen2-1.5b prompt's shapes, (B, S, H, KV, D) = (8, 512, 12,
+    2, 128): bf16 and f32 causal, and bf16 causal with window 128, on the
+    model layout's transposed views (and bf16 once on contiguous (B, H,
+    S, D) tensors), against the plain float32 version on the same inputs.
+    Timed in bf16, causal, on the views, as the serve path calls it,
+    beside SDPA on contiguous tensors."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_kernel
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
     b, s, h, kv, d = 8, 512, 12, 2, 128
+    flash_ptxas()
     worst = 0.0
     for dtype, window, tol in ((torch.bfloat16, 0, FLASH_TOL["bf16"]),
                                (torch.float32, 0, FLASH_TOL["f32"]),
                                (torch.bfloat16, 128, FLASH_TOL["bf16"])):
-        q, k, v = (a.transpose(1, 2).contiguous() for a in
-                   flash_inputs(dev, b, s, h, kv, d, dtype, 7 + window))
-        got = flash_attention_kernel(q, k, v, causal=True, window=window)
-        want = attention_ref(q.to(f32), k.to(f32), v.to(f32), causal=True,
-                             window=window)
-        torch.cuda.synchronize()
-        if not torch.isfinite(got).all():
-            fail(f"flash_attention not finite ({dtype}, window {window})")
-        err = (got.to(f32) - want).abs()
-        rel = (err / want.abs().clamp(min=1e-3)).max().item()
-        mx = err.max().item()
-        print(f"  flash_attention {str(dtype)[6:]} causal window {window}: "
-              f"max abs err {mx:.3e}, max rel err {rel:.3e} against the "
-              f"plain f32 version (tol {tol})")
-        if mx > tol:
-            fail(f"flash_attention differs by {mx} > {tol} ({dtype}, "
-                 f"window {window})")
+        q, k, v = flash_views(dev, b, s, h, kv, d, dtype, 7 + window)
+        err = flash_agrees(q, k, v, window, tol, f"{str(dtype)[6:]} causal "
+                           f"window {window}")
+        if dtype == torch.bfloat16:
+            worst = max(worst, err)
         if dtype == torch.bfloat16 and window == 0:
-            worst = mx
             args = (q, k, v)
+            contig = [a.contiguous() for a in args]
+            worst = max(worst, flash_agrees(
+                *contig, 0, tol, "bf16 causal window 0, contiguous (B, H, "
+                "S, D)"))
     q, k, v = args
+    out = flash_attention(*(a.transpose(1, 2) for a in args))
+    if not out.is_contiguous():
+        fail("ops.flash_attention's output is not contiguous (B, S, H, D)")
     call = lambda: flash_attention_kernel(q, k, v, causal=True)
     ms, wall = event_ms(call), cuda_ms(call, 50)
     warm = event_ms(call, cold=False)
     print(f"  flash_attention timed; SM clock, power: {sm_clock()}")
     plain = event_ms(lambda: attention_ref(q, k, v, causal=True), iters=5)
+    qc, kc, vc = contig
     lib = event_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True))
-    flash_mixtral(dev)
+        qc, kc, vc, is_causal=True, enable_gqa=True))
     nbytes = 2 * (2 * b * h * s * d + 2 * b * kv * s * d)
     ops = 4 * b * h * d * s * (s + 1) // 2
-    bnd, by = lm_bound_ms(nbytes, ops, BF16_OPS_PER_S)
+    bnd, by = flash_rates(ms, nbytes, ops, f"at {(b, s, h, kv, d)}")
+    flash_mixtral(dev)
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention/kernel.py:83",
@@ -706,35 +768,28 @@ def check_flash_attention(dev):
 def flash_mixtral(dev) -> None:
     """B4 at the mixtral-8x22b prompt's shape, (B, S, H, KV, D) = (8, 512,
     48, 8, 128) bf16, causal, its native window 4096 (which cuts nothing
-    at 512 tokens): checked against the plain float32 version, timed
-    beside SDPA (printed, not in the JSON row)."""
+    at 512 tokens), on the model layout's views: checked against the
+    plain float32 version, timed beside SDPA on contiguous tensors
+    (printed, not in the JSON row)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_kernel
-    from repro_torch.kernels.flash_attention.ref import attention_ref
-    f32 = torch.float32
-    q, k, v = (a.transpose(1, 2).contiguous() for a in
-               flash_inputs(dev, 8, 512, 48, 8, 128, torch.bfloat16, 13))
-    got = flash_attention_kernel(q, k, v, causal=True, window=4096)
-    want = attention_ref(q.to(f32), k.to(f32), v.to(f32), causal=True,
-                         window=4096)
-    torch.cuda.synchronize()
-    err = (got.to(f32) - want).abs().max().item()
-    if not torch.isfinite(got).all() or err > FLASH_TOL["bf16"]:
-        fail(f"flash_attention at the mixtral shape differs by {err}")
-    del want
+    q, k, v = flash_views(dev, 8, 512, 48, 8, 128, torch.bfloat16, 13)
+    err = flash_agrees(q, k, v, 4096, FLASH_TOL["bf16"], "bf16 at the "
+                       "mixtral-8x22b prompt (8, 512, 48, 8, 128), window "
+                       "4096")
     ms = event_ms(lambda: flash_attention_kernel(q, k, v, causal=True,
                                                  window=4096))
+    qc, kc, vc = (a.contiguous() for a in (q, k, v))
     lib = event_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True))
+        qc, kc, vc, is_causal=True, enable_gqa=True))
     nbytes = 2 * (2 * 8 * 48 * 512 * 128 + 2 * 8 * 8 * 512 * 128)
-    bnd, by = lm_bound_ms(nbytes, 4 * 8 * 48 * 128 * 512 * 513 // 2,
-                          BF16_OPS_PER_S)
-    print(f"  flash_attention bf16 at the mixtral-8x22b prompt (8, 512, 48, "
-          f"8, 128), window 4096: max abs err {err:.3e} (tol "
-          f"{FLASH_TOL['bf16']}); kernel {ms * 1e3:.2f} us, SDPA "
-          f"{lib * 1e3:.2f} us, bound {bnd * 1e3:.3f} us ({by})")
+    bnd, by = flash_rates(ms, nbytes, 4 * 8 * 48 * 128 * 512 * 513 // 2,
+                          "at the mixtral-8x22b prompt")
+    print(f"  flash_attention bf16 at the mixtral-8x22b prompt: max abs err "
+          f"{err:.3e}; kernel {ms * 1e3:.2f} us, SDPA {lib * 1e3:.2f} us, "
+          f"bound {bnd * 1e3:.3f} us ({by})")
 
 
 def check_rwkv6_scan(dev):

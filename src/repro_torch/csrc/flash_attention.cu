@@ -1,72 +1,127 @@
 // Causal GQA flash attention, forward, with an optional sliding window.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py,
-// flash_attention_kernel (body _kernel): for query head h of batch b,
+// flash_attention_kernel (body _kernel; pl.pallas_call at :108): for
+// query head h of batch b,
 //   out = softmax(q k^T * sm_scale + mask) v
 // over key head h * KV / H, where the mask keeps kpos < S, kpos <= qpos
-// when causal, and kpos > qpos - window when window > 0. Scores, the
-// online-softmax statistics and the accumulator are float32; q, k, v and
-// out are float32 or bfloat16 (out in q's dtype).
+// when causal, and kpos > qpos - window when window > 0; key tiles wholly
+// in the future or wholly out of the window are skipped, and the output
+// is divided by max(l, 1e-30). Scores, the online-softmax statistics and
+// the accumulator are float32.
 //
-// Bound on the H100 at the serve path's prompt shape (B, S, H, KV, D) =
-// (8, 512, 12, 2, 128) in bf16: the function must read q, k, v and write
-// out once, 29.4 MB, 8.8 us at 3.35 TB/s; causal attention needs
+// Layout: q (B, H, S, D) and k, v (B, KV, S, D) are strided views (the
+// last dim unit-stride, the others multiples of 8 elements), so the
+// model's (B, S, H, D) tensors come in transposed without a copy; out
+// is written in the model's layout, (B, S, H, D) contiguous.
+//
+// Bound on the H100 at the serve path's prompt shapes, bf16, causal:
+// qwen2-1.5b's (B, S, H, KV, D) = (8, 512, 12, 2, 128) must read q, k, v
+// and write out once, 29.4 MB, 8.764 us at 3.35 TB/s, and needs
 // 4 * B * H * D * S (S + 1) / 2 = 6.46 GFLOP, 6.5 us on the bf16 tensor
-// cores (989 TFLOP/s) and 96 us in float32 outside them (67 TFLOP/s).
-// This kernel computes in float32 on the CUDA cores, so its floor is the
-// float32 one; tensor cores (wgmma), TMA and a pipelined ring of tiles
-// are later work.
+// cores (989 TFLOP/s); mixtral-8x22b's (8, 512, 48, 8, 128) moves 117.4
+// MB, 35.057 us (bytes; its 25.8 GFLOP take 26.1 us). So the kernel has
+// to run its products on the tensor cores and keep its loads in flight
+// behind them; beyond that it is bytes-bound.
 //
-// Design: one block of 256 threads (16 x 16) per (query tile of 64 rows,
-// head, batch). The query tile, pre-scaled by sm_scale as the TPU kernel
-// does, stays in shared memory; the block walks the key tiles of 64 rows
-// in order, skipping tiles wholly in the future (causal) or wholly out of
-// the window, as the TPU kernel skips them. Thread (ty, tx) owns query
-// rows ty + 16 i and key columns tx + 16 j (i, j < 4), so a row's 16
-// owners are one half-warp and its max and sum reduce with four
-// shuffles. Scores are read from float4 rows padded by 4 floats (no bank
-// conflicts across the 16 key rows a half-warp reads). The probabilities
-// of a tile overwrite its keys in shared memory, so a block needs
-// 98 KB at D = 128 and two blocks fit an SM. The ragged tail of S is
-// masked with kpos < S and its rows are zero-filled.
+// bf16 design (flash_attention_wgmma, D = 64 or 128):
+//  - A block is one warpgroup (128 threads) owning kBM = 64 query rows of
+//    one (batch, head); key tiles are kBK = 64 rows. Grid (H, B, query
+//    tiles) with the query tile reversed, so the longest causal rows (the
+//    last tiles) start first, across every head. The tile was chosen by
+//    measurement on an H100 at qwen2's prompt (PERF.md): (64, 64) ran in
+//    39.4-39.8 us against 43.6-44.6 us for two warpgroups a block sharing
+//    64-row K/V tiles and 45.8-46.5 us with 128-row key tiles. At D = 128
+//    the block takes 83,008 bytes of shared memory and 167 registers a
+//    thread, so two blocks share an SM and one's softmax overlaps the
+//    other's products; two warpgroups in one block run in lock-step and
+//    idle the tensor cores together.
+//  - TMA loads q's 64 x D tile once and the K and V tiles into a ring of
+//    two stages, each stage completing on an mbarrier; thread 0 starts
+//    tile t + 2's copy into a stage as soon as the block is done with
+//    tile t, so the copy of the next tile overlaps this tile's products.
+//    128-byte swizzle: a row of 64 bf16 is one 128-byte line, eight
+//    lines one 1024-byte swizzle atom, and D = 128 is two such column
+//    blocks, each its own TMA box and smem region. Rows past S come back
+//    zero-filled; kpos < S is still masked (a zero key scores 0, not
+//    -inf).
+//  - S = Q K^T: wgmma m64 n64 k16, both operands K-major from shared
+//    memory, descriptors with the same 128-byte swizzle (start address
+//    advanced by 32 bytes a k16 step inside an atom, SBO 1024 bytes).
+//    sm_scale * log2(e) multiplies the float32 scores; q is never
+//    rescaled or rounded.
+//  - The online softmax runs in the accumulator's registers: a thread
+//    holds rows 16 warp + lane / 4 and + 8, a row's 4 owners are one
+//    quad (max by __shfl_xor_sync over lanes 1 and 2; l is summed per
+//    thread and reduced once at the end). The block's range of key
+//    tiles leaves out the tiles wholly in its future or wholly out of
+//    its window; of the rest, only tiles that cross the diagonal, the
+//    window's edge or S are masked.
+//  - O += P V: the float32 accumulator layout of S is the register
+//    A-fragment layout of the next product, so P never goes to shared
+//    memory. P is split as P_hi = bf16(P), P_lo = bf16(P - P_hi) and
+//    both are multiplied by the same V tile, so P keeps ~16 bits. One
+//    bf16 rounding of P alone errs by up to 2^-9 of each term, on top of
+//    the output's own rounding, which for outputs in [4, 8) already
+//    reaches the 2^-6 gate. V is the B operand MN-major
+//    (D contiguous), wgmma's transpose bit, one m64 n64 k16 per 64
+//    columns of D.
+//  - wgmma.fence before each product group (its accumulator or A
+//    registers were written by ordinary instructions), commit, then
+//    wait_group 0 before any register of the group is read.
+//
+// float32 (flash_attention_f32): scalar, for checks at 1e-5 that TF32
+// tensor cores cannot meet. One block of 256 threads
+// (16 x 16) per (query tile of 64 rows, head, batch); the query tile,
+// pre-scaled by sm_scale as the TPU kernel does, stays in shared
+// memory; key tiles of 64 rows in order, skipping future and
+// out-of-window tiles; thread (ty, tx) owns query rows ty + 16 i and key
+// columns tx + 16 j, so a row's 16 owners are one half-warp and its max
+// and sum reduce with four shuffles; the probabilities overwrite the
+// keys in shared memory (98 KB at D = 128).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows a block
-constexpr int kBK = 64;        // key rows a tile
-constexpr int kThreads = 256;  // 16 x 16
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
+// element strides of q, k, v over (batch, head, position)
+struct Strides {
+  long long q[3], k[3], v[3];
+};
+
+// ---------------------------------------------------------------------------
+// float32: scalar kernel
+
+constexpr int kBQ = 64;        // query rows a block
+constexpr int kBK32 = 64;      // key rows a tile
+constexpr int kThreads = 256;  // 16 x 16
 
 template <int D>
 struct Layout {
   static constexpr int kDP = D + 4;                 // padded row stride
-  static constexpr int kPS = kBK + 1;               // probability row stride
+  static constexpr int kPS = kBK32 + 1;             // probability row stride
   static constexpr int kQ = kBQ * kDP;
-  static constexpr int kKP = (kBK * kDP > kBQ * kPS) ? kBK * kDP : kBQ * kPS;
-  static constexpr int kV = kBK * D;
+  static constexpr int kKP = (kBK32 * kDP > kBQ * kPS) ? kBK32 * kDP
+                                                       : kBQ * kPS;
+  static constexpr int kV = kBK32 * D;
   static constexpr size_t kBytes = sizeof(float) * (kQ + kKP + kV);
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out,
-                           int h, int kv, int s, int causal, int window,
-                           float sm_scale) {
+    flash_attention_f32(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ out,
+                        Strides st, int h, int kv, int s, int causal,
+                        int window, float sm_scale) {
   using L = Layout<D>;
   constexpr int kDP = L::kDP;
   constexpr int kPS = L::kPS;
+  constexpr int kBK = kBK32;
   constexpr int kCols = D / 16;  // output columns a thread owns
   extern __shared__ float4 smem4[];
   float* sq = reinterpret_cast<float*>(smem4);  // kBQ x kDP, scaled q
@@ -81,14 +136,13 @@ __global__ void __launch_bounds__(kThreads)
   const int hh = blockIdx.y;
   const int bb = blockIdx.z;
   const int kvh = hh * kv / h;
-  const T* qb = q + ((long long)bb * h + hh) * s * D;
-  const T* kb = k + ((long long)bb * kv + kvh) * s * D;
-  const T* vb = v + ((long long)bb * kv + kvh) * s * D;
+  const float* qb = q + bb * st.q[0] + hh * st.q[1];
+  const float* kb = k + bb * st.k[0] + kvh * st.k[1];
+  const float* vb = v + bb * st.v[0] + kvh * st.v[1];
 
   for (int e = tid; e < kBQ * D; e += kThreads) {
     const int r = e / D, c = e % D;
-    const float x = (q0 + r < s) ? to_f32(qb[(long long)(q0 + r) * D + c])
-                                 : 0.0f;
+    const float x = (q0 + r < s) ? qb[(q0 + r) * st.q[2] + c] : 0.0f;
     sq[r * kDP + c] = x * sm_scale;
   }
 
@@ -111,9 +165,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = tid; e < kBK * D; e += kThreads) {
       const int r = e / D, c = e % D;
       const bool in = k0 + r < s;
-      const long long g = (long long)(k0 + r) * D + c;
-      sk[r * kDP + c] = in ? to_f32(kb[g]) : 0.0f;
-      sv[r * D + c] = in ? to_f32(vb[g]) : 0.0f;
+      sk[r * kDP + c] = in ? kb[(k0 + r) * st.k[2] + c] : 0.0f;
+      sv[r * D + c] = in ? vb[(k0 + r) * st.v[2] + c] : 0.0f;
     }
     __syncthreads();
 
@@ -203,71 +256,531 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  T* ob = out + ((long long)bb * h + hh) * s * D;
+  // out (B, S, H, D)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty + 16 * i;
     if (r >= s) continue;
+    float* o = out + (((long long)bb * s + r) * h + hh) * D;
     const float inv = 1.0f / fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int cc = 0; cc < kCols; ++cc)
-      store(&ob[(long long)r * D + tx + 16 * cc], acc[i][cc] * inv);
+    for (int cc = 0; cc < kCols; ++cc) o[tx + 16 * cc] = acc[i][cc] * inv;
   }
 }
 
-template <typename T, int D>
-int launch_d(const T* q, const T* k, const T* v, T* out, int b, int h,
-             int kv, int s, int causal, int window, float sm_scale,
-             cudaStream_t stream) {
+template <int D>
+int launch_f32(const float* q, const float* k, const float* v, float* out,
+               const Strides& st, int b, int h, int kv, int s, int causal,
+               int window, float sm_scale, cudaStream_t stream) {
   const size_t bytes = Layout<D>::kBytes;
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_kernel<T, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (e != cudaSuccess) return (int)e;
   dim3 grid((s + kBQ - 1) / kBQ, h, b);
-  flash_attention_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-      q, k, v, out, h, kv, s, causal, window, sm_scale);
+  flash_attention_f32<D><<<grid, kThreads, bytes, stream>>>(
+      q, k, v, out, st, h, kv, s, causal, window, sm_scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch(const T* q, const T* k, const T* v, T* out, int b, int h, int kv,
-           int s, int d, int causal, int window, float sm_scale,
-           void* stream) {
-  if (b == 0 || h == 0 || s == 0) return 0;
-  if (kv <= 0 || h % kv != 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (d) {
-    case 64:
-      return launch_d<T, 64>(q, k, v, out, b, h, kv, s, causal, window,
-                             sm_scale, st);
-    case 128:
-      return launch_d<T, 128>(q, k, v, out, b, h, kv, s, causal, window,
-                              sm_scale, st);
+
+// ---------------------------------------------------------------------------
+// bf16: wgmma + TMA kernel
+
+constexpr int kBM = 64;           // query rows a block: one warpgroup
+constexpr int kBK = 64;           // key rows a tile
+constexpr int kWgThreads = 128;
+constexpr int kStages = 2;        // K/V ring
+constexpr int kLine = 128;        // bytes of one swizzled row (64 bf16)
+constexpr int kAtom = 1024;       // 8 lines: one 128-byte swizzle atom
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Spins until the barrier's phase of the given parity completes; a wait
+// that never ends (a copy that was never started) traps instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  for (long long spins = 0; !done; ++spins) {
+    if (spins == (1ll << 24)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
   }
-  return (int)cudaErrorInvalidValue;
+}
+
+// one TMA box of a 4-D map (D, S, heads, B) into shared memory
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// shared-memory matrix descriptor, 128-byte swizzle
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pins registers an in-flight wgmma reads or writes: ordinary code
+// touching them is not moved across the fence / wait beside it.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// d (m64 x n64, f32) = or += a (smem, K-major) b^T (smem, K-major)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (m64 x n64, f32) += a (registers, bf16) b (smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+template <int D>
+struct WgLayout {
+  static constexpr int kChunks = D / 64;          // 64-column blocks of D
+  static constexpr int kQBytes = kBM * D * 2;
+  static constexpr int kTileBytes = kBK * D * 2;  // one K or V tile
+  static constexpr int kBarOff = kQBytes + 2 * kStages * kTileBytes;
+  static constexpr size_t kBytes = kBarOff + 64 + kAtom;  // + alignment
+};
+
+// thread 0: K and V tile j_lo + t into stage t % kStages
+template <int D>
+__device__ __forceinline__ void load_kv(const CUtensorMap* tk,
+                                        const CUtensorMap* tv, uint8_t* sk,
+                                        uint8_t* sv, uint64_t* full, int t,
+                                        int j_lo, int kvh, int bb) {
+  constexpr int kTileBytes = WgLayout<D>::kTileBytes;
+  const int stage = t % kStages;
+  mbar_expect_tx(&full[stage], 2 * kTileBytes);
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c) {
+    const int off = stage * kTileBytes + c * kBK * kLine;
+    tma_load(sk + off, tk, &full[stage], 64 * c, (j_lo + t) * kBK, kvh, bb);
+    tma_load(sv + off, tv, &full[stage], 64 * c, (j_lo + t) * kBK, kvh, bb);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_attention_wgmma(__grid_constant__ const CUtensorMap tq,
+                          __grid_constant__ const CUtensorMap tk,
+                          __grid_constant__ const CUtensorMap tv,
+                          __nv_bfloat16* __restrict__ out, int h, int kv,
+                          int s, int causal, int window, float scale_log2) {
+  using L = WgLayout<D>;
+  constexpr int kC = L::kChunks;
+  constexpr int kNS = kBK / 2;  // S accumulator floats a thread
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + kAtom - 1) &
+      ~uintptr_t(kAtom - 1));
+  uint8_t* sq = smem;                            // [chunk][kBM rows][128 B]
+  uint8_t* sk = smem + L::kQBytes;               // [stage][chunk][kBK][128 B]
+  uint8_t* sv = sk + kStages * L::kTileBytes;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L::kBarOff);
+  uint64_t* qbar = bar;
+  uint64_t* full = bar + 1;                      // one a stage
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int hh = blockIdx.x;
+  const int bb = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBM;  // longest first
+  const int kvh = hh / (h / kv);
+
+  // key tiles [j_lo, j_hi): none wholly in the block's future or wholly
+  // out of its window
+  const int q_last = min(q0 + kBM, s) - 1;
+  const int nk = (s + kBK - 1) / kBK;
+  const int j_hi = causal ? min(nk, q_last / kBK + 1) : nk;
+  const int j_lo = (window > 0 && q0 - window + 1 > 0)
+                       ? (q0 - window + 1) / kBK : 0;
+  const int n_tiles = j_hi - j_lo;
+
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+    for (int i = 0; i < kStages; ++i) mbar_init(&full[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(qbar, L::kQBytes);
+#pragma unroll
+    for (int c = 0; c < kC; ++c)
+      tma_load(sq + c * kBM * kLine, &tq, qbar, 64 * c, q0, hh, bb);
+    for (int t = 0; t < kStages && t < n_tiles; ++t)
+      load_kv<D>(&tk, &tv, sk, sv, full, t, j_lo, kvh, bb);
+  }
+
+  // a thread's rows ra and ra + 8
+  const int ra = q0 + 16 * warp + (lane >> 2);
+  const int cq = 2 * (lane & 3);  // first of a thread's two columns
+  const uint32_t sq_a = smem_u32(sq);
+  const uint32_t sk_a = smem_u32(sk);
+  const uint32_t sv_a = smem_u32(sv);
+
+  float sacc[kNS];
+  float o[kC][32];
+#pragma unroll
+  for (int i = 0; i < kNS; ++i) sacc[i] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < kC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.0f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.0f, 0.0f};   // this thread's share of the row sums
+
+  mbar_wait(qbar, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int stage = t % kStages;
+    const int k0 = (j_lo + t) * kBK;
+    mbar_wait(&full[stage], (t / kStages) & 1);
+    const uint32_t k_a = sk_a + stage * L::kTileBytes;
+    const uint32_t v_a = sv_a + stage * L::kTileBytes;
+    // S = Q K^T
+    pin(sacc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t col = (kk % 4) * 32;  // inside a 128-byte line
+      const uint64_t da = sw128_desc(
+          sq_a + (kk / 4) * kBM * kLine + col, 16, kAtom);
+      const uint64_t db = sw128_desc(
+          k_a + (kk / 4) * kBK * kLine + col, 16, kAtom);
+      wgmma_ss_n64(sacc, da, db, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(sacc);
+
+    // mask (edge tiles only), scale, online softmax
+    const bool edge = (k0 + kBK > s) || (causal && k0 + kBK - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + kBM - 1 - window);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int i = 0; i < kNS; ++i) {
+      float x = sacc[i] * scale_log2;
+      if (edge) {
+        const int kpos = k0 + 8 * (i / 4) + cq + (i & 1);
+        const int qpos = ra + ((i & 2) ? 8 : 0);
+        const bool ok = kpos < s && (!causal || kpos <= qpos) &&
+                        (window <= 0 || kpos > qpos - window);
+        if (!ok) x = kNegInf;
+      }
+      sacc[i] = x;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+    }
+    float alpha[2], mb[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      // a row with every key so far masked keeps p = 0 (not exp2(0))
+      mb[r] = (m_new == kNegInf) ? 0.0f : m_new;
+      alpha[r] = exp2f(m[r] - mb[r]);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+    uint32_t phi[kBK / 16][4], plo[kBK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+      for (int rg = 0; rg < 4; ++rg) {
+        // A fragment register rg of k16 step kk: S block 2 kk + rg / 2,
+        // row ra (+ 8 when rg is odd), columns cq, cq + 1
+        const int i = 4 * (2 * kk + (rg >> 1)) + 2 * (rg & 1);
+        const int r = rg & 1;
+        const float p0 = exp2f(sacc[i] - mb[r]);
+        const float p1 = exp2f(sacc[i + 1] - mb[r]);
+        l[r] += p0 + p1;
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(
+            p0 - __low2float(hi), p1 - __high2float(hi));
+        phi[kk][rg] = bf16x2_bits(hi);
+        plo[kk][rg] = bf16x2_bits(lo);
+      }
+#pragma unroll
+    for (int c = 0; c < kC; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[c][i] *= alpha[(i >> 1) & 1];
+
+    // O += P_hi V + P_lo V
+#pragma unroll
+    for (int c = 0; c < kC; ++c) pin(o[c]);
+    pin(phi);
+    pin(plo);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < kC; ++c) {
+        const uint64_t db = sw128_desc(
+            v_a + c * kBK * kLine + kk * 2 * kAtom, kAtom, kAtom);
+        wgmma_rs_n64_tb(o[c], phi[kk], db);
+        wgmma_rs_n64_tb(o[c], plo[kk], db);
+      }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int c = 0; c < kC; ++c) pin(o[c]);
+    pin(phi);
+    pin(plo);
+    __syncthreads();  // every warp is done with this stage
+    if (tid == 0 && t + kStages < n_tiles)
+      load_kv<D>(&tk, &tv, sk, sv, full, t + kStages, j_lo, kvh, bb);
+  }
+
+  // out (B, S, H, D): rows ra and ra + 8, divided by max(l, 1e-30)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = ra + 8 * r;
+    if (row >= s) continue;
+    const float inv = 1.0f / fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* ob = out + (((long long)bb * s + row) * h + hh) * D;
+#pragma unroll
+    for (int c = 0; c < kC; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int i = 4 * j + 2 * r;
+        *reinterpret_cast<__nv_bfloat162*>(ob + 64 * c + 8 * j + cq) =
+            __floats2bfloat162_rn(o[c][i] * inv, o[c][i + 1] * inv);
+      }
+  }
+}
+
+// cuTensorMapEncodeTiled lives in libcuda: reached through the runtime's
+// entry-point query (no link against libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D map (D, S, heads, B) of a bf16 view with element strides
+// st[0..2] over (batch, head, position); boxes of 64 columns x rows.
+// Returns 0 or a CUresult offset by 1000.
+int make_map(CUtensorMap* map, const void* ptr, int d, int s, int heads,
+             int b, const long long* st, int rows) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)s,
+                              (cuuint64_t)heads, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                         const_cast<void*>(ptr), dims, strides, box, estr,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out,
+                 const Strides& st, int b, int h, int kv, int s, int causal,
+                 int window, float sm_scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int code = make_map(&tq, q, D, s, h, b, st.q, kBM);
+  if (code == 0) code = make_map(&tk, k, D, s, kv, b, st.k, kBK);
+  if (code == 0) code = make_map(&tv, v, D, s, kv, b, st.v, kBK);
+  if (code != 0) return code;
+  constexpr size_t bytes = WgLayout<D>::kBytes;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(h, b, (s + kBM - 1) / kBM);
+  const float scale_log2 = (float)((double)sm_scale * 1.4426950408889634);
+  flash_attention_wgmma<D><<<grid, kWgThreads, bytes, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), h, kv, s, causal,
+      window, scale_log2);
+  return (int)cudaGetLastError();
+}
+
+Strides strides_of(const long long* st) {
+  Strides r;
+  for (int i = 0; i < 3; ++i) {
+    r.q[i] = st[i];
+    r.k[i] = st[3 + i];
+    r.v[i] = st[6 + i];
+  }
+  return r;
 }
 
 }  // namespace
 
+// st: element strides (batch, head, position) of q, then k, then v; the
+// last dim of each is unit-stride. out is (B, S, H, D) contiguous.
 extern "C" int flash_attention_f32_launch(const float* q, const float* k,
-                                          const float* v, float* out, int b,
-                                          int h, int kv, int s, int d,
-                                          int causal, int window,
-                                          float sm_scale, void* stream) {
-  return launch<float>(q, k, v, out, b, h, kv, s, d, causal, window,
-                       sm_scale, stream);
+                                          const float* v, float* out,
+                                          const long long* st, int b, int h,
+                                          int kv, int s, int d, int causal,
+                                          int window, float sm_scale,
+                                          void* stream) {
+  if (b == 0 || h == 0 || s == 0) return 0;
+  if (kv <= 0 || h % kv != 0) return (int)cudaErrorInvalidValue;
+  const Strides str = strides_of(st);
+  cudaStream_t cs = (cudaStream_t)stream;
+  switch (d) {
+    case 64:
+      return launch_f32<64>(q, k, v, out, str, b, h, kv, s, causal, window,
+                            sm_scale, cs);
+    case 128:
+      return launch_f32<128>(q, k, v, out, str, b, h, kv, s, causal, window,
+                             sm_scale, cs);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
-                                           const void* v, void* out, int b,
-                                           int h, int kv, int s, int d,
-                                           int causal, int window,
-                                           float sm_scale, void* stream) {
-  using B = __nv_bfloat16;
-  return launch<B>(static_cast<const B*>(q), static_cast<const B*>(k),
-                   static_cast<const B*>(v), static_cast<B*>(out), b, h, kv,
-                   s, d, causal, window, sm_scale, stream);
+                                           const void* v, void* out,
+                                           const long long* st, int b, int h,
+                                           int kv, int s, int d, int causal,
+                                           int window, float sm_scale,
+                                           void* stream) {
+  if (b == 0 || h == 0 || s == 0) return 0;
+  if (kv <= 0 || h % kv != 0 || b > 65535 || (s + kBM - 1) / kBM > 65535)
+    return (int)cudaErrorInvalidValue;
+  const Strides str = strides_of(st);
+  cudaStream_t cs = (cudaStream_t)stream;
+  switch (d) {
+    case 64:
+      return launch_wgmma<64>(q, k, v, out, str, b, h, kv, s, causal,
+                              window, sm_scale, cs);
+    case 128:
+      return launch_wgmma<128>(q, k, v, out, str, b, h, kv, s, causal,
+                               window, sm_scale, cs);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// bytes of dynamic shared memory the bf16 kernel launches with at head
+// dim d, or -1
+extern "C" int flash_attention_bf16_smem(int d) {
+  switch (d) {
+    case 64:
+      return (int)WgLayout<64>::kBytes;
+    case 128:
+      return (int)WgLayout<128>::kBytes;
+  }
+  return -1;
 }

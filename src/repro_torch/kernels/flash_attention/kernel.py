@@ -1,59 +1,106 @@
 """Launch wrapper of the CUDA flash attention
-(``csrc/flash_attention.cu``): checks, allocates, launches, counts."""
+(``csrc/flash_attention.cu``): checks, allocates, launches, counts.
+
+q, k and v come in as strided views, so the model's (B, S, H, D) tensors
+are passed transposed without a copy; the output is allocated in the
+model's layout and returned as its (B, H, S, D) view."""
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import (check, count_launch,
-                                        raise_on_error)
+from repro_torch.kernels.common import count_launch, raise_on_error
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 HEAD_DIMS = (64, 128)        # the reduced configs and qwen2-1.5b
+STRIDE_ALIGN = 8             # elements: TMA takes 16-byte strides
 _ENTRY = {torch.float32: "flash_attention_f32_launch",
           torch.bfloat16: "flash_attention_bf16_launch"}
+_Strides = ctypes.c_longlong * 9
 
 
 @functools.lru_cache(maxsize=None)
 def _fn(dtype: torch.dtype):
     fn = getattr(_build.load("flash_attention"), _ENTRY[dtype])
-    fn.argtypes = [_P] * 4 + [_I] * 7 + [_F, _P]
+    fn.argtypes = [_P] * 5 + [_I] * 7 + [_F, _P]
     fn.restype = _I
     return fn
+
+
+def wgmma_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one block of the bf16 kernel at head dim
+    ``d``, as it launches (q tile, two stages of K and V, barriers,
+    alignment)."""
+    fn = _build.load("flash_attention").flash_attention_bf16_smem
+    fn.argtypes = [_I]
+    fn.restype = _I
+    return fn(d)
+
+
+def kernel_strides(t: torch.Tensor, name: str) -> Tuple[int, int, int]:
+    """Element strides over (batch, head, position) of a (B, H, S, D) view
+    the kernel can read: unit-stride last dim, the other strides
+    multiples of ``STRIDE_ALIGN``. A dim of size 1 is never stepped, so
+    its stride is reported as ``STRIDE_ALIGN`` whatever the view says."""
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name}: last dim has stride {t.stride(-1)}, "
+                         f"expected 1")
+    out = []
+    for dim in range(3):
+        st = t.stride(dim) if t.shape[dim] > 1 else STRIDE_ALIGN
+        if st % STRIDE_ALIGN or st <= 0:
+            raise ValueError(f"{name}: stride {st} of dim {dim} is not a "
+                             f"positive multiple of {STRIDE_ALIGN}")
+        out.append(st)
+    return tuple(out)
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, causal: bool = True,
                            window: int = 0, sm_scale: float = 0.0
                            ) -> torch.Tensor:
-    """q (B, H, S, D); k, v (B, KV, S, D), float32 or bfloat16, one dtype,
-    contiguous on one CUDA device, H % KV == 0, D in ``HEAD_DIMS`` -> out
-    like q. One launch for all (batch, head, query tile)."""
+    """q (B, H, S, D); k, v (B, KV, S, D) views, float32 or bfloat16 (one
+    dtype), on one CUDA device, 16-byte aligned, with strides as
+    ``kernel_strides`` takes them; H % KV == 0, D in ``HEAD_DIMS`` -> out
+    (B, H, S, D), the transposed view of a contiguous (B, S, H, D)
+    tensor. One launch for all (batch, head, query tile). bfloat16 runs
+    the tensor-core kernel, float32 the scalar kernel."""
     b, h, s, d = q.shape
     kv = k.shape[1]
     if q.dtype not in _ENTRY:
         raise TypeError(f"q: dtype {q.dtype}, expected one of "
                         f"{list(_ENTRY)}")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name}: dtype {t.dtype}, expected {q.dtype}")
+    if tuple(k.shape) != (b, kv, s, d) or tuple(v.shape) != (b, kv, s, d):
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
     if h % kv:
         raise ValueError(f"{h} query heads do not split over {kv} KV heads")
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
-    if b > 65535 or h > 65535:
-        raise ValueError(f"batch {b} or {h} heads exceed the grid's 65535")
-    check(q, "q", q.dtype, (b, h, s, d))
-    check(k, "k", q.dtype, (b, kv, s, d))
-    check(v, "v", q.dtype, (b, kv, s, d))
+    if b > 65535:
+        raise ValueError(f"batch {b} exceeds the grid's 65535")
+    named = (("q", q), ("k", k), ("v", v))
+    strides = [st for name, t in named for st in kernel_strides(t, name)]
+    for name, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: data pointer not 16-byte aligned")
+        if not t.is_cuda:
+            raise ValueError(f"{name}: on {t.device}, expected CUDA")
     if sm_scale == 0.0:
         sm_scale = 1.0 / math.sqrt(d)
-    out = torch.empty_like(q)
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     code = _fn(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), b, h, kv, s, d, int(causal),
-                        int(window), sm_scale,
+                        out.data_ptr(), _Strides(*strides), b, h, kv, s, d,
+                        int(causal), int(window), sm_scale,
                         torch.cuda.current_stream(q.device).cuda_stream)
     raise_on_error(code, "flash_attention")
     count_launch("flash_attention")
-    return out
+    return out.transpose(1, 2)

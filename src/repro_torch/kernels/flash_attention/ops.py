@@ -1,9 +1,10 @@
 """Public wrapper of flash attention in the model's layout.
 
 ``flash_attention`` takes (B, S, H, D) queries and (B, S, KV, D) keys and
-values, as the reference's ``ops.flash_attention`` does, and transposes
-to the kernel's (B, H, S, D). A CUDA tensor launches the kernel; a CPU
-tensor takes the plain version.
+values, as the reference's ``ops.flash_attention`` does, and hands their
+transposed (B, H, S, D) views to the kernel: on CUDA nothing is copied,
+and the kernel writes the output in the (B, S, H, D) layout, so the
+returned tensor is contiguous. A CPU tensor takes the plain version.
 """
 from __future__ import annotations
 
@@ -20,8 +21,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if on_cuda(q, k, v):
         from repro_torch.kernels.flash_attention.kernel import \
             flash_attention_kernel
-        out = flash_attention_kernel(qt.contiguous(), kt.contiguous(),
-                                     vt.contiguous(), causal=causal,
+        out = flash_attention_kernel(qt, kt, vt, causal=causal,
                                      window=window)
     else:
         out = attention_ref(qt, kt, vt, causal=causal, window=window)

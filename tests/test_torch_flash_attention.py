@@ -24,8 +24,8 @@ from repro.kernels.flash_attention.ops import \
 from repro.kernels.flash_attention.ref import \
     attention_ref as jax_ref  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
-from repro_torch.kernels.flash_attention.kernel import \
-    flash_attention_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    STRIDE_ALIGN, flash_attention_kernel, kernel_strides)
 from repro_torch.kernels.flash_attention.ops import \
     flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import \
@@ -142,3 +142,86 @@ def test_kernel_wrapper_refuses_cpu_tensors():
                                k[..., :48].contiguous(),
                                v[..., :48].contiguous())
     assert common.LAUNCHES["flash_attention"] == before
+
+
+def test_plain_takes_transposed_views():
+    """The model hands ops.flash_attention (B, S, H, D) tensors that may be
+    views of other layouts; the result equals the contiguous inputs'."""
+    q, k, v = _inputs(2, 40, 4, 2, 64, seed=8)
+    # (B, H, S, D) storage seen through a transposed (B, S, H, D) view
+    views = [t_(np.ascontiguousarray(a.transpose(0, 2, 1, 3))).transpose(1, 2)
+             for a in (q, k, v)]
+    assert not any(a.is_contiguous() for a in views)
+    before = dict(common.LAUNCHES)
+    got = flash_attention(*views, causal=True, window=8)
+    assert common.LAUNCHES == before
+    want = flash_attention(t_(q), t_(k), t_(v), causal=True, window=8)
+    assert torch.equal(got, want)
+
+
+def _bhsd(seed, dtype=torch.float32, d=64):
+    """(B, H, S, D) views of model-layout (B, S, H, D) tensors."""
+    return [t_(a).to(dtype).transpose(1, 2)
+            for a in _inputs(1, 16, 4, 2, d, seed=seed)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64,
+                                   torch.int32])
+def test_kernel_wrapper_refuses_dtype(dtype):
+    """A dtype other than float32 / bfloat16 is refused before the build,
+    and nothing is counted."""
+    q, k, v = _bhsd(9, dtype)
+    before = common.LAUNCHES["flash_attention"]
+    with pytest.raises(TypeError, match="dtype"):
+        flash_attention_kernel(q, k, v)
+    assert common.LAUNCHES["flash_attention"] == before
+
+
+def test_kernel_wrapper_refuses_mixed_dtypes():
+    q, k, v = _bhsd(10)
+    before = common.LAUNCHES["flash_attention"]
+    with pytest.raises(TypeError, match="k: dtype"):
+        flash_attention_kernel(q, k.to(torch.bfloat16), v)
+    assert common.LAUNCHES["flash_attention"] == before
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_kernel_wrapper_refuses_strided_last_dim(which):
+    """A last dim that is not unit-stride (here: every other element of a
+    wider tensor) is refused before the build; nothing is counted."""
+    args = dict(zip("qkv", _bhsd(11)))
+    wide = torch.zeros(args[which].shape[:-1] + (128,))
+    args[which] = wide[..., ::2]
+    assert args[which].stride(-1) == 2
+    before = common.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match=f"{which}: last dim has stride 2"):
+        flash_attention_kernel(args["q"], args["k"], args["v"])
+    assert common.LAUNCHES["flash_attention"] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_wrapper_refuses_cpu_views(dtype):
+    """Model-layout views that the kernel would take on CUDA are refused
+    on the CPU, after every other check passed."""
+    q, k, v = _bhsd(12, dtype)
+    before = common.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="q: on cpu, expected CUDA"):
+        flash_attention_kernel(q, k, v)
+    assert common.LAUNCHES["flash_attention"] == before
+
+
+def test_kernel_strides_of_model_layout():
+    """The (batch, head, position) strides the kernel's TMA maps get: the
+    model's (B, S, H, D) layout seen as (B, H, S, D), a fused QKV slice,
+    and a size-1 dim whose stride is never stepped."""
+    b, s, h, d = 2, 5, 3, 64
+    x = torch.zeros(b, s, h, d).transpose(1, 2)
+    assert kernel_strides(x, "q") == (s * h * d, d, h * d)
+    qkv = torch.zeros(b, s, (h + 4) * d)
+    q = qkv[..., :h * d].view(b, s, h, d).transpose(1, 2)
+    assert kernel_strides(q, "q") == (s * (h + 4) * d, d, (h + 4) * d)
+    one = torch.zeros(1, 1, s, d).as_strided((1, 1, s, d), (3, 3, d, 1))
+    assert kernel_strides(one, "k") == (STRIDE_ALIGN, STRIDE_ALIGN, d)
+    odd = torch.zeros(b, s, h, d + 4)[..., :d].transpose(1, 2)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        kernel_strides(odd, "v")

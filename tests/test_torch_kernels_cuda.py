@@ -94,30 +94,70 @@ def test_masked_aggregate(dev, r, s, d, kind):
 # B4 tolerance: float32 inputs, the kernel's fmaf chains and online
 # softmax against float32 einsums, 1e-5; bfloat16 inputs, the kernel's
 # output rounded once to bfloat16 against the float32 plain result: one
-# bf16 ulp of values below 4, 2 ** -6.
-@pytest.mark.parametrize("b,s,h,kv,d,causal,window,dtype", [
+# bf16 ulp of values below 4, 2 ** -6. Every case passes the model's
+# (B, S, H, D) tensors, which reach the kernel as transposed views.
+FLASH_CASES = [
     (2, 100, 4, 2, 64, True, 0, torch.float32),
     (1, 512, 12, 2, 128, True, 0, torch.bfloat16),
     (1, 300, 4, 1, 128, True, 64, torch.float32),
     (1, 70, 4, 4, 64, False, 0, torch.float32),
     (2, 129, 8, 2, 128, True, 17, torch.bfloat16),
-])
-def test_flash_attention(dev, b, s, h, kv, d, causal, window, dtype):
+    (2, 100, 4, 2, 64, True, 0, torch.bfloat16),      # D = 64
+    (2, 1, 12, 2, 128, True, 0, torch.bfloat16),      # S = 1
+    (2, 1, 4, 2, 64, True, 0, torch.float32),
+    (2, 1, 4, 1, 64, True, 0, torch.bfloat16),
+    (1, 70, 4, 4, 64, False, 0, torch.bfloat16),      # ragged, non-causal
+    (2, 200, 12, 2, 128, False, 0, torch.bfloat16),   # non-causal
+    (1, 300, 4, 1, 128, True, 100, torch.bfloat16),   # window edge in a tile
+    (1, 300, 4, 1, 64, True, 100, torch.bfloat16),
+    (8, 512, 12, 2, 128, True, 0, torch.bfloat16),    # qwen2-1.5b's prompt
+    (1, 512, 48, 8, 128, True, 4096, torch.bfloat16),  # mixtral-8x22b's
+]
+
+
+def _flash_inputs(dev, b, s, h, kv, d, dtype, fused=False):
+    """Model layout. ``fused``: q, k, v are column slices of one (B, S,
+    (H + 2 KV) D) projection, as a fused QKV matmul leaves them, so each
+    is a non-contiguous view with a position stride of (H + 2 KV) D."""
+    gen = torch.Generator(device=dev).manual_seed(s)
+    if fused:
+        qkv = torch.randn((b, s, (h + 2 * kv) * d), generator=gen,
+                          device=dev).to(dtype)
+        q, k, v = qkv.split([h * d, kv * d, kv * d], dim=-1)
+        return (q.view(b, s, h, d), k.view(b, s, kv, d),
+                v.view(b, s, kv, d))
+    return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+                 for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d)))
+
+
+def _flash_check(q, k, v, causal, window):
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    gen = torch.Generator(device=dev).manual_seed(s)
-    q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
-    k = torch.randn((b, s, kv, d), generator=gen, device=dev).to(dtype)
-    v = torch.randn((b, s, kv, d), generator=gen, device=dev).to(dtype)
     before = common.LAUNCHES["flash_attention"]
     got = flash_attention(q, k, v, causal=causal, window=window)
     assert common.LAUNCHES["flash_attention"] == before + 1
-    assert got.dtype == dtype and got.shape == q.shape
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert got.is_contiguous()          # written in the model's layout
     f32 = torch.float32
     want = attention_ref(*(a.transpose(1, 2).to(f32) for a in (q, k, v)),
                          causal=causal, window=window).transpose(1, 2)
-    tol = 1e-5 if dtype == f32 else 2 ** -6
+    tol = 1e-5 if q.dtype == f32 else 2 ** -6
     torch.testing.assert_close(got.to(f32), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,causal,window,dtype", FLASH_CASES)
+def test_flash_attention(dev, b, s, h, kv, d, causal, window, dtype):
+    q, k, v = _flash_inputs(dev, b, s, h, kv, d, dtype)
+    _flash_check(q, k, v, causal, window)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,h,kv,d,window", [(2, 129, 12, 2, 128, 0),
+                                               (1, 300, 4, 1, 64, 100)])
+def test_flash_attention_fused_views(dev, b, s, h, kv, d, window, dtype):
+    q, k, v = _flash_inputs(dev, b, s, h, kv, d, dtype, fused=True)
+    assert not q.is_contiguous()
+    _flash_check(q, k, v, True, window)
 
 
 # B5 tolerance: the kernel's fused y = sum_i r_i (C_i + u_i k_i v_j) and
