@@ -39,10 +39,18 @@ Phases, in order; any failure exits non-zero before a result is printed:
    of the bound; then bf16 at the mixtral-8x22b prompt's (8, 512, 48, 8,
    128), checked and timed the same way;
 7. rwkv6_scan against its plain per-step version at the rwkv6-1.6b
-   prompt's shapes (8, 32 heads, 512, 64, 64), bf16 r/k/v. Phases 6 and
-   7 time with CUDA events around loops of calls (L2 flushed, the
-   flushes' own time subtracted), which read steadier than summed
-   profiler kernel times for these long kernels;
+   prompt's shapes (8, 32 heads, 512, 64, 64), bf16 r/k/v (the chunked
+   tensor-core kernel), on the model layout's transposed views as the
+   serve path passes them, on contiguous tensors, at a strong decay (w0
+   = 1, where the reference's chunked form overflows) and at a ragged
+   T = 100; float32 r/k/v (the sequential kernel) on the views at phase
+   10's float32 prefill, (2, 32 heads, 512); each with its error margin
+   against ``SCAN_TOL``; the kernels' ptxas registers and spills and the
+   chunked kernel's shared memory; timed in bf16 on the views with its
+   share of the bound. Phases 6 and 7 time with CUDA events around
+   loops of calls (L2 flushed, the flushes' own time subtracted), which
+   read steadier than summed profiler kernel times for these long
+   kernels;
 8. qwen2-1.5b served at full width and depth in bf16
    (``launch.serve.run``: batch 8, 512-token prompt, 32 greedy tokens)
    with 28 flash_attention launches in its prefill; its prefill against
@@ -96,8 +104,11 @@ BF16_OPS_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
 # online softmax against einsums, values below 4: 1e-5; bf16 inputs, the
 # output rounded once to bf16: one bf16 ulp of values below 4, 2 ** -6
 FLASH_TOL = {"f32": 1e-5, "bf16": 2 ** -6}
-# B5 against its per-step plain version: float32 sums of 64 terms in
-# another order, relative to max(1, |value|)
+# B5 against its per-step plain version, relative to max(1, |value|):
+# bf16's chunked kernel sums in another order over split operands (TF32
+# hi/lo, bf16 in three pieces: a float64 emulation of their rounding,
+# tools/rwkv6_split_emulation.py, erred by 4.8e-6), float32's sequential
+# kernel sums 64 terms in another order
 SCAN_TOL = 1e-4
 # prefill against token-by-token steps at full width and depth, last
 # logits of values up to ~5: qwen2-1.5b in bf16 (measured gap 7.8e-2 at
@@ -792,33 +803,118 @@ def flash_mixtral(dev) -> None:
           f"bound {bnd * 1e3:.3f} us ({by})")
 
 
-def check_rwkv6_scan(dev):
-    """B5 at the rwkv6-1.6b prompt's shapes, (B, H, T, dk, dv) = (8, 32,
-    512, 64, 64), bf16 r/k/v, float32 log_w and u."""
+def scan_inputs(dev, b, h, t, w0, views, seed, dtype="bfloat16"):
+    """B5's inputs: r, k, v N(0, 1) in ``dtype``, log_w = -exp(0.5 N + w0)
+    and u float32; with ``views`` the transposed (B, H, T, 64) views of
+    (B, T, H, 64) tensors, as the model passes them (non-contiguous, no
+    copy)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (b, t, h, 64) if views else (b, h, t, 64)
+    r, k, v = (torch.randn(shape, generator=gen, device=dev)
+               .to(getattr(torch, dtype)) for _ in range(3))
+    lw = -torch.exp(torch.randn(shape, generator=gen, device=dev) * 0.5
+                    + w0)
+    u = torch.randn((h, 64), generator=gen, device=dev) * 0.1
+    if views:
+        r, k, v, lw = (a.transpose(1, 2) for a in (r, k, v, lw))
+    return r, k, v, lw, u
+
+
+def scan_agrees(r, k, v, lw, u, what) -> float:
+    """B5 against its per-step plain version on the same inputs, within
+    ``SCAN_TOL`` of max(1, |value|); the max abs error."""
     import torch
     from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_kernel
     from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
-    b, h, t, dk = 8, 32, 512, 64
-    gen = torch.Generator(device=dev).manual_seed(11)
-    r, k, v = (torch.randn((b, h, t, dk), generator=gen, device=dev)
-               .to(torch.bfloat16) for _ in range(3))
-    # the decays of the model's init: -exp(w0 + lora) with w0 = -2
-    lw = -torch.exp(torch.randn((b, h, t, dk), generator=gen, device=dev)
-                    * 0.5 - 2.0)
-    u = torch.randn((h, dk), generator=gen, device=dev) * 0.1
     y, fin = rwkv6_scan_kernel(r, k, v, lw, u)
     wy, wf = rwkv6_scan_ref(r, k, v, lw, u)
     torch.cuda.synchronize()
     if not (torch.isfinite(y).all() and torch.isfinite(fin).all()):
-        fail("rwkv6_scan not finite")
-    ey, ef = (y - wy).abs().max().item(), (fin - wf).abs().max().item()
+        fail(f"rwkv6_scan not finite ({what})")
+    if not y.transpose(1, 2).is_contiguous():
+        fail("rwkv6_scan's y is not a view of (B, T, H, 64)")
+    worst_abs, worst_rel = 0.0, 0.0
+    for a, w in ((y, wy), (fin, wf)):
+        err = (a - w).abs()
+        worst_abs = max(worst_abs, err.max().item())
+        worst_rel = max(worst_rel,
+                        (err / w.abs().clamp(min=1.0)).max().item())
     scale = max(wy.abs().max().item(), wf.abs().max().item())
-    print(f"  rwkv6_scan: y max abs err {ey:.3e}, final state max abs err "
-          f"{ef:.3e} (values up to {scale:.1f}; tol {SCAN_TOL} x max(1, "
-          f"|value|))")
-    for name, a, w in (("y", y, wy), ("final state", fin, wf)):
-        if ((a - w).abs() > SCAN_TOL * w.abs().clamp(min=1.0)).any():
-            fail(f"rwkv6_scan {name} differs beyond {SCAN_TOL} relative")
+    print(f"  rwkv6_scan {what}: max abs err {worst_abs:.3e}, max err "
+          f"relative to max(1, |value|) {worst_rel:.3e} (values up to "
+          f"{scale:.1f}; tol {SCAN_TOL}, margin "
+          f"{SCAN_TOL / max(worst_rel, 1e-30):.1f}x)")
+    if worst_rel > SCAN_TOL:
+        fail(f"rwkv6_scan differs beyond {SCAN_TOL} relative ({what})")
+    return worst_abs
+
+
+def scan_ptxas() -> None:
+    """nvcc's ``-Xptxas -v`` lines of both B5 kernels: registers, spills,
+    and the dynamic shared memory the chunked (bf16) kernel launches
+    with."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rwkv6_scan.kernel import chunked_smem_bytes
+    if "rwkv6_scan" not in _build.BUILD_LOG:
+        print("  rwkv6_scan: built before this run, no ptxas log")
+    name = None
+    for line in _build.BUILD_LOG.get("rwkv6_scan", "").splitlines():
+        if "Compiling entry function" in line:
+            name = ("rwkv6_scan_chunked" if "chunked" in line
+                    else "rwkv6_scan_seq")
+        elif name and ("registers" in line or "spill" in line):
+            extra = (f"; {chunked_smem_bytes()} bytes of dynamic shared "
+                     f"memory" if "registers" in line
+                     and name == "rwkv6_scan_chunked" else "")
+            print(f"  {name}: "
+                  f"{line.replace('ptxas info    :', '').strip()}{extra}")
+
+
+def reference_chunk_overflows(lw) -> float:
+    """The largest exp(-cumsum log_w) over a 64-step chunk that the
+    reference's chunked form (its Pallas kernel, kernel.py:38) would
+    multiply k by, as a natural exponent; above ~88.7 it is inf in
+    float32."""
+    t = lw.shape[2] // 64 * 64
+    chunks = lw[:, :, :t].unflatten(2, (-1, 64))
+    return (-chunks.cumsum(3)).max().item()
+
+
+def check_rwkv6_scan(dev):
+    """B5 at the rwkv6-1.6b prompt's shapes, (B, H, T, dk, dv) = (8, 32,
+    512, 64, 64), bf16 r/k/v, float32 log_w and u, against the per-step
+    plain version: on the model's strided views (the decays of the
+    model's init, w0 = -2), on contiguous tensors, at a strong decay
+    (w0 = 1) where the reference's chunked form overflows, and at a
+    ragged T = 100 on the views; then float32 r/k/v (the sequential
+    kernel) on the views at phase 10's float32 prefill, (2, 32, 512).
+    Timed in bf16 on the views, as the serve path calls it."""
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_kernel
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+    b, h, t, dk = 8, 32, 512, 64
+    scan_ptxas()
+    args = scan_inputs(dev, b, h, t, -2.0, True, 11)
+    worst = scan_agrees(*args, "prompt (8, 32, 512), model's views")
+    worst = max(worst, scan_agrees(
+        *scan_inputs(dev, b, h, t, -2.0, False, 12),
+        "prompt (8, 32, 512), contiguous (B, H, T, 64)"))
+    strong = scan_inputs(dev, b, h, t, 1.0, True, 13)
+    peak = reference_chunk_overflows(strong[3])
+    if peak < 88.8:
+        fail(f"the strong-decay case does not overflow the reference's "
+             f"chunked form (exp({peak:.1f}))")
+    worst = max(worst, scan_agrees(
+        *strong, f"strong decay w0 = 1, model's views (the reference's "
+        f"chunked form would scale k by exp({peak:.1f}) = inf in float32)"))
+    worst = max(worst, scan_agrees(
+        *scan_inputs(dev, b, h, 100, -2.0, True, 14),
+        "ragged T = 100 (8, 32, 100), model's views"))
+    worst = max(worst, scan_agrees(
+        *scan_inputs(dev, 2, h, t, -2.0, True, 15, "float32"),
+        "float32 (the sequential kernel) at phase 10's (2, 32, 512), "
+        "model's views"))
+    r, k, v, lw, u = args
     call = lambda: rwkv6_scan_kernel(r, k, v, lw, u)
     ms, wall = event_ms(call), cuda_ms(call, 50)
     warm = event_ms(call, cold=False)
@@ -830,10 +926,12 @@ def check_rwkv6_scan(dev):
         + 4 * b * h * t * dk + 4 * b * h * dk * dk
     ops = 4 * b * h * t * dk * dk
     bnd, by = lm_bound_ms(nbytes, ops, FP32_OPS_PER_S)
+    print(f"  rwkv6_scan at {(b, h, t, dk, dk)} bf16, model's views: "
+          f"{bnd / ms:.3f} of the bound {bnd * 1e3:.3f} us ({by})")
     return dict(name="rwkv6_scan", route="cuda",
                 source="src/repro_torch/csrc/rwkv6_scan.cu",
                 replaces="src/repro/kernels/rwkv6_scan/kernel.py:61",
-                max_abs_err=max(ey, ef), ms=ms, plain_ms=plain,
+                max_abs_err=worst, ms=ms, plain_ms=plain,
                 bound_ms=bnd, bound_by=by, library_ms=None,
                 shape=[b, h, t, dk, dk], wall_ms=wall, warm_ms=warm)
 

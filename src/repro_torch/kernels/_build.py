@@ -4,8 +4,9 @@ Each source in ``repro_torch/csrc`` has a plain C entry point (no PyTorch
 headers, so a build takes seconds). At first use every source is
 compiled, all at once, into ``build/repro_torch/<hash>/`` at the root of
 the checkout (or ``$REPRO_TORCH_BUILD``), keyed on a hash of every
-source with its own flags, so an edited source or a changed flag is
-never served stale. A build or load error raises.
+source with its own flags and of every header (``*.cuh``) in
+``csrc``, so an edited source, header or flag is never served stale. A
+build or load error raises.
 
 ``--fmad=false`` (no contraction of a multiply and an add into one FMA)
 applies only to the sources whose plain versions they must match
@@ -60,6 +61,9 @@ def build_dir() -> Path:
     for name in SOURCES:
         h.update(f"{name}\0{' '.join(flags(name))}\0".encode())
         h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(f"{header.name}\0".encode())
+        h.update(header.read_bytes())
     return _build_root() / h.hexdigest()[:16]
 
 

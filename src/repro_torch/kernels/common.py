@@ -17,7 +17,7 @@ when there is no CUDA device instead of falling back to the CPU.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -66,6 +66,25 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
         raise ValueError(f"{name}: not contiguous")
     if not t.is_cuda:
         raise ValueError(f"{name}: on {t.device}, expected CUDA")
+
+
+def view_strides(t: torch.Tensor, name: str, align: int
+                 ) -> Tuple[int, int, int]:
+    """Element strides over the three leading dims of a 4-d view a kernel
+    can read: unit-stride last dim, the other strides positive multiples
+    of ``align``. A dim of size 1 is never stepped, so its stride is
+    reported as ``align`` whatever the view says."""
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name}: last dim has stride {t.stride(-1)}, "
+                         f"expected 1")
+    out = []
+    for dim in range(3):
+        st = t.stride(dim) if t.shape[dim] > 1 else align
+        if st % align or st <= 0:
+            raise ValueError(f"{name}: stride {st} of dim {dim} is not a "
+                             f"positive multiple of {align}")
+        out.append(st)
+    return tuple(out)
 
 
 def raise_on_error(code: int, name: str) -> None:

@@ -9,12 +9,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import count_launch, raise_on_error
+from repro_torch.kernels.common import (count_launch, raise_on_error,
+                                        view_strides)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 HEAD_DIMS = (64, 128)        # the reduced configs and qwen2-1.5b
@@ -42,34 +42,17 @@ def wgmma_smem_bytes(d: int) -> int:
     return fn(d)
 
 
-def kernel_strides(t: torch.Tensor, name: str) -> Tuple[int, int, int]:
-    """Element strides over (batch, head, position) of a (B, H, S, D) view
-    the kernel can read: unit-stride last dim, the other strides
-    multiples of ``STRIDE_ALIGN``. A dim of size 1 is never stepped, so
-    its stride is reported as ``STRIDE_ALIGN`` whatever the view says."""
-    if t.stride(-1) != 1:
-        raise ValueError(f"{name}: last dim has stride {t.stride(-1)}, "
-                         f"expected 1")
-    out = []
-    for dim in range(3):
-        st = t.stride(dim) if t.shape[dim] > 1 else STRIDE_ALIGN
-        if st % STRIDE_ALIGN or st <= 0:
-            raise ValueError(f"{name}: stride {st} of dim {dim} is not a "
-                             f"positive multiple of {STRIDE_ALIGN}")
-        out.append(st)
-    return tuple(out)
-
-
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, causal: bool = True,
                            window: int = 0, sm_scale: float = 0.0
                            ) -> torch.Tensor:
     """q (B, H, S, D); k, v (B, KV, S, D) views, float32 or bfloat16 (one
     dtype), on one CUDA device, 16-byte aligned, with strides as
-    ``kernel_strides`` takes them; H % KV == 0, D in ``HEAD_DIMS`` -> out
-    (B, H, S, D), the transposed view of a contiguous (B, S, H, D)
-    tensor. One launch for all (batch, head, query tile). bfloat16 runs
-    the tensor-core kernel, float32 the scalar kernel."""
+    ``common.view_strides`` takes them at ``STRIDE_ALIGN``; H % KV == 0,
+    D in ``HEAD_DIMS`` -> out (B, H, S, D), the transposed view of a
+    contiguous (B, S, H, D) tensor. One launch for all (batch, head,
+    query tile). bfloat16 runs the tensor-core kernel, float32 the scalar
+    kernel."""
     b, h, s, d = q.shape
     kv = k.shape[1]
     if q.dtype not in _ENTRY:
@@ -88,7 +71,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     if b > 65535:
         raise ValueError(f"batch {b} exceeds the grid's 65535")
     named = (("q", q), ("k", k), ("v", v))
-    strides = [st for name, t in named for st in kernel_strides(t, name)]
+    strides = [st for name, t in named for st in view_strides(t, name, STRIDE_ALIGN)]
     for name, t in named:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: data pointer not 16-byte aligned")

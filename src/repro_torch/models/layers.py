@@ -283,10 +283,12 @@ def chunked_linear_recurrence(r, k, v, log_w, chunk: int,
     """r, k, log_w (B, H, T, dk); v (B, H, T, dv); log_w <= 0; u (H, dk).
 
     The exclusive form with ``u`` from a zero state (the reference's
-    ``init_state=None``), which is what the WKV scan kernel computes; it
-    runs there, sequentially in T, so the chunk is only the reference's
-    contract: T a multiple of ``chunk``. Returns y (B, H, T, dv) and the
-    final state (B, H, dk, dv), float32.
+    ``init_state=None``), which is what the WKV scan kernel computes, in
+    its own chunks of 64 (bf16) or sequentially (float32); ``chunk`` is
+    only the reference's contract: T a multiple of ``chunk``. On CUDA the
+    (B, H, T, d) views of the model's (B, T, H, d) tensors go in without
+    a copy and y comes back as the (B, H, T, dv) view of a (B, T, H, dv)
+    tensor. Returns y and the final state (B, H, dk, dv), float32.
     """
     _exclusive_only(u)
     t = r.shape[2]

@@ -131,7 +131,7 @@ def time_mix(p: dict, x: torch.Tensor, x_prev: torch.Tensor,
     log_w = heads(_decay(p, xw))
     y, fin = L.chunked_linear_recurrence(r, k, v, log_w, chunk=min(chunk, t),
                                          u=p["u"])
-    y = y.transpose(1, 2).reshape(b, t, d)
+    y = y.transpose(1, 2).reshape(b, t, d)   # on CUDA already this layout
     y = L.group_norm_heads(y.to(x.dtype), p["gn_w"], p["gn_b"], h)
     return (y * g) @ p["wo"], fin
 

@@ -24,8 +24,9 @@ from repro.kernels.flash_attention.ops import \
 from repro.kernels.flash_attention.ref import \
     attention_ref as jax_ref  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
+from repro_torch.kernels.common import view_strides  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
-    STRIDE_ALIGN, flash_attention_kernel, kernel_strides)
+    STRIDE_ALIGN, flash_attention_kernel)
 from repro_torch.kernels.flash_attention.ops import \
     flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import \
@@ -216,12 +217,14 @@ def test_kernel_strides_of_model_layout():
     and a size-1 dim whose stride is never stepped."""
     b, s, h, d = 2, 5, 3, 64
     x = torch.zeros(b, s, h, d).transpose(1, 2)
-    assert kernel_strides(x, "q") == (s * h * d, d, h * d)
+    assert view_strides(x, "q", STRIDE_ALIGN) == (s * h * d, d, h * d)
     qkv = torch.zeros(b, s, (h + 4) * d)
     q = qkv[..., :h * d].view(b, s, h, d).transpose(1, 2)
-    assert kernel_strides(q, "q") == (s * (h + 4) * d, d, (h + 4) * d)
+    assert view_strides(q, "q", STRIDE_ALIGN) == (s * (h + 4) * d, d,
+                                                  (h + 4) * d)
     one = torch.zeros(1, 1, s, d).as_strided((1, 1, s, d), (3, 3, d, 1))
-    assert kernel_strides(one, "k") == (STRIDE_ALIGN, STRIDE_ALIGN, d)
+    assert view_strides(one, "k", STRIDE_ALIGN) == (STRIDE_ALIGN,
+                                                    STRIDE_ALIGN, d)
     odd = torch.zeros(b, s, h, d + 4)[..., :d].transpose(1, 2)
     with pytest.raises(ValueError, match="multiple of 8"):
-        kernel_strides(odd, "v")
+        view_strides(odd, "v", STRIDE_ALIGN)

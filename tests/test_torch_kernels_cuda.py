@@ -160,27 +160,90 @@ def test_flash_attention_fused_views(dev, b, s, h, kv, d, window, dtype):
     _flash_check(q, k, v, True, window)
 
 
-# B5 tolerance: the kernel's fused y = sum_i r_i (C_i + u_i k_i v_j) and
-# the plain version's two einsums sum in another order over 64 terms of
-# values up to ~50: 1e-4 absolute and relative.
+# B5 tolerance: bf16 runs the chunked tensor-core kernel, which sums the
+# state, inter-chunk and in-chunk parts of y in another order than the
+# plain version's per-step einsums, over products of split operands (TF32
+# hi/lo, 21-22 bits; bf16 in three pieces, 24 bits); a float64 emulation
+# of that rounding (tools/rwkv6_split_emulation.py) erred by at most
+# 4.8e-6 of max(1, |value|) for values up to ~120, and the tensor cores'
+# own summation adds to it. float32 runs the sequential kernel: fused
+# sums of 64 terms in another order. 1e-4 absolute and relative either
+# way.
+def _scan_inputs(dev, b, h, t, dtype, w0=-2.0, views=False, seed=0):
+    """r, k, v (B, H, T, 64) in ``dtype``, log_w = -exp(0.5 N + w0) and u
+    float32; with ``views`` the transposed views of (B, T, H, 64) tensors,
+    as the model passes them."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (b, t, h, 64) if views else (b, h, t, 64)
+    r, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+               for _ in range(3))
+    lw = -torch.exp(torch.randn(shape, generator=gen, device=dev) * 0.5
+                    + w0)
+    u = torch.randn((h, 64), generator=gen, device=dev) * 0.2
+    if views:
+        r, k, v, lw = (a.transpose(1, 2) for a in (r, k, v, lw))
+    return r, k, v, lw, u
+
+
+def _scan_check(r, k, v, lw, u):
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+    before = common.LAUNCHES["rwkv6_scan"]
+    y, fin = rwkv6_scan(r, k, v, lw, u)
+    assert common.LAUNCHES["rwkv6_scan"] == before + 1
+    assert y.transpose(1, 2).is_contiguous()   # the model's layout
+    wy, wf = rwkv6_scan_ref(r, k, v, lw, u)
+    assert torch.isfinite(y).all() and torch.isfinite(fin).all()
+    torch.testing.assert_close(y, wy, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(fin, wf, rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.parametrize("b,h,t,dtype", [(2, 3, 100, torch.float32),
                                          (1, 4, 512, torch.bfloat16),
                                          (1, 1, 1, torch.float32)])
 def test_rwkv6_scan(dev, b, h, t, dtype):
+    _scan_check(*_scan_inputs(dev, b, h, t, dtype, seed=t))
+
+
+# strong decays (w0 = 1, 3) make the reference's exp(-cumsum log_w) chunk
+# factors overflow (R8); the model's strided views; ragged T
+@pytest.mark.parametrize("b,h,t,dtype,w0,views", [
+    (1, 4, 512, torch.bfloat16, 1.0, False),
+    (1, 4, 512, torch.bfloat16, 3.0, False),
+    (2, 3, 100, torch.bfloat16, 3.0, True),
+    (2, 32, 512, torch.bfloat16, -2.0, True),
+    (2, 32, 512, torch.float32, -2.0, True),
+    (2, 3, 100, torch.bfloat16, -2.0, True),
+    (2, 3, 100, torch.float32, 1.0, True),
+    (1, 2, 1, torch.bfloat16, -2.0, True),
+    (1, 2, 65, torch.bfloat16, 0.5, False),
+])
+def test_rwkv6_scan_decays_and_views(dev, b, h, t, dtype, w0, views):
+    args = _scan_inputs(dev, b, h, t, dtype, w0, views, seed=t + h)
+    assert views != args[0].is_contiguous() or t == 1
+    _scan_check(*args)
+
+
+# float32 reads its views element by element: any strides and offsets;
+# bfloat16 reads them through TMA, which takes 16-byte strides and bases
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_scan_view_alignment(dev, dtype):
     from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
-    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
-    gen = torch.Generator(device=dev).manual_seed(t)
-    r, k, v = (torch.randn((b, h, t, 64), generator=gen, device=dev)
-               .to(dtype) for _ in range(3))
-    lw = -torch.exp(torch.randn((b, h, t, 64), generator=gen, device=dev)
-                    * 0.5 - 2.0)
+    b, h, t = 2, 3, 100
+    gen = torch.Generator(device=dev).manual_seed(5)
+    wide = (b, t, h, 65)        # 65-element rows, views from offset 1
+    r, k, v = (torch.randn(wide, generator=gen, device=dev).to(dtype)
+               [..., 1:].transpose(1, 2) for _ in range(3))
+    lw = -torch.exp(torch.randn(wide, generator=gen, device=dev) * 0.5
+                    - 2.0)[..., 1:].transpose(1, 2)
     u = torch.randn((h, 64), generator=gen, device=dev) * 0.2
-    before = common.LAUNCHES["rwkv6_scan"]
-    y, fin = rwkv6_scan(r, k, v, lw, u)
-    assert common.LAUNCHES["rwkv6_scan"] == before + 1
-    wy, wf = rwkv6_scan_ref(r, k, v, lw, u)
-    torch.testing.assert_close(y, wy, rtol=1e-4, atol=1e-4)
-    torch.testing.assert_close(fin, wf, rtol=1e-4, atol=1e-4)
+    if dtype == torch.float32:
+        _scan_check(r, k, v, lw, u)
+    else:
+        before = common.LAUNCHES["rwkv6_scan"]
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            rwkv6_scan(r, k, v, lw, u)
+        assert common.LAUNCHES["rwkv6_scan"] == before
 
 
 # B6: indices equal to the plain version's on every row whose sorted

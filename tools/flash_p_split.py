@@ -27,6 +27,7 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.common import view_strides  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fk  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 
@@ -65,7 +66,7 @@ def single(dll, q, k, v, window):
     shipped entry (causal, sm_scale 1 / sqrt(D))."""
     b, h, s, d = q.shape
     strides = [st for name, t in (("q", q), ("k", k), ("v", v))
-               for st in fk.kernel_strides(t, name)]
+               for st in view_strides(t, name, fk.STRIDE_ALIGN)]
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     code = dll.flash_attention_bf16_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
