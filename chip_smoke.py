@@ -19,12 +19,19 @@ Phases, in order; any failure exits non-zero before a result is printed:
    kernel time under torch.profiler, with the L2 cache flushed before
    each call), the plain version's and a library call's device time
    where one exists, and the bound (bytes over 3.35 TB/s, or operations
-   over the peak rate of their type);
+   over the peak rate of their type). B2, the one-pass P2 selection
+   (density, sort and budget walk), is held bitwise in assignments and
+   budgets left on eleven cases (negative costs, the size limit, seeds
+   whose walks end apart among them) and must refuse one size over its
+   limit; beside its time, its plain version's with host syncs (CUDA
+   events), ``torch.sort`` of the same keys, the pick chain's latency
+   floor, and its ptxas registers, spills and shared memory;
 4. the HFL main path: ``sweep_experiments(("cocs",),
    "device:metropolis-1k", seeds=(0, 1), horizon=20, eval_every=5)`` on
    CUDA at full width (1000 clients, 12 ES, 784-d logreg, 200 samples
    per client), with each kernel's launch count, budget feasibility,
-   finite metrics, rounds per second and the walk's host syncs. The
+   finite metrics, rounds per second and the walk's host syncs, which
+   must be 0 (B2 walks on the card). The
    aggregation's slot capacity is each round's largest per-ES cohort,
    known only once the path ran, so masked_aggregate is checked and
    timed at the main path's shapes here, at every capacity the run used;
@@ -98,6 +105,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12          # H100 SXM float32 outside tensor cores
+# B2's latency floor: its picks form a dependent chain, each one shared-
+# memory read-modify-write (~30 cycles) at the H100 SXM's boost clock
+PICK_CYCLES = 30
+BOOST_CLOCK_HZ = 1.98e9
 BF16_OPS_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
 
 # B4 against its plain float32 version: f32 inputs, fmaf chains and an
@@ -313,68 +324,120 @@ def check_context_pairwise(dev, spec):
                 wall_ms=wall, warm_ms=warm)
 
 
-def check_budgeted_topk(dev):
+def topk_inputs(dev, s, n, m, seed, kind="random"):
+    """values, costs, budgets, eligible for B2. ``main``: the main path's
+    statistics on metropolis-1k (~28% of pairs eligible, costs 0.3-4,
+    budget 12 an ES, ~200 picks a seed)."""
     import numpy as np
     import torch
-    from repro_torch.kernels.budgeted_topk.kernel import density_sort_kernel
-    from repro_torch.kernels.budgeted_topk.ref import (DEFAULT_TILE,
-                                                       density_sort_ref)
+    rng = np.random.default_rng(seed)
+    v = rng.random((s, n, m)).astype(np.float32)
+    c = rng.uniform(0.3, 4.0, (s, n)).astype(np.float32)
+    e = rng.random((s, n, m)) < {"main": 0.285, "full": 0.95}.get(kind, 0.4)
+    b = np.full((s, m), 12.0 if kind == "main" else 3.5, np.float32)
+    if kind == "ties":
+        v[:] = 0.5
+        c[:] = 1.0
+    elif kind == "ineligible":
+        e[:] = False
+    elif kind == "zero-cost":
+        c[:, ::3] = 0.0
+    elif kind == "negative-cost":      # some budgets start below zero and
+        c[:, ::5] = -rng.uniform(0.5, 2.0, c[:, ::5].shape)  # grow back
+        c[:, 1::7] = 0.0
+        b[:, ::3] = -1.0
+    elif kind == "zero-budget":
+        b[:, ::2] = 0.0
+    elif kind == "tight":              # costs at the budget edge
+        c[:] = 3.5
+        c[:, ::4] = 0.0
+    elif kind == "one-each":           # ties, one pick an ES
+        v[:] = 0.5
+        c[:] = 1.0
+        b[:] = 1.0
+    t = lambda a: torch.as_tensor(a, device=dev)
+    return t(v), t(c), t(b), t(e)
 
-    def inputs(s, n, m, seed, kind="random"):
-        rng = np.random.default_rng(seed)
-        v = rng.random((s, n, m)).astype(np.float32)
-        c = rng.uniform(0.3, 4.0, (s, n)).astype(np.float32)
-        e = rng.random((s, n, m)) < 0.4
-        if kind == "ties":
-            v[:] = 0.5
-            c[:] = 1.0
-        elif kind == "ineligible":
-            e[:] = False
-        elif kind == "zero-cost":
-            c[:, ::3] = 0.0
-        t = lambda a: torch.as_tensor(a, device=dev)
-        return t(v), t(c), t(e)
 
-    cases = [(2, 1000, 12, 0, "random"), (1, 37, 3, 1, "random"),
+def check_budgeted_topk(dev):
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.budgeted_topk.kernel import (
+        MAX_PAIRS, budgeted_topk_kernel, smem_bytes)
+    from repro_torch.kernels.budgeted_topk.ref import (budgeted_topk_ref,
+                                                       pair_density)
+
+    cases = [(2, 1000, 12, 0, "main"), (2, 1000, 12, 1, "random"),
              (2, 130, 3, 2, "ties"), (2, 64, 12, 3, "ineligible"),
-             (1, 1, 1, 4, "random"), (2, 300, 7, 5, "zero-cost")]
-    for (s, n, m, seed, kind) in cases:
-        v, c, e = inputs(s, n, m, seed, kind)
-        kd, ki = density_sort_kernel(v, c, e, DEFAULT_TILE)
-        rd, ri = density_sort_ref(v, c, e, DEFAULT_TILE)
+             (2, 300, 7, 4, "zero-cost"), (2, 300, 12, 5, "negative-cost"),
+             (2, 200, 6, 6, "zero-budget"), (2, 200, 6, 7, "tight"),
+             (1, 1, 1, 8, "random"), (2, 2048, 8, 9, "full")]
+    runs = [(c, topk_inputs(dev, *c)) for c in cases]
+    # S = 3, walks of different lengths side by side: long, empty, short
+    parts = [topk_inputs(dev, 1, 400, 6, 10 + i, k)
+             for i, k in enumerate(("random", "ineligible", "one-each"))]
+    runs.append(((3, 400, 6, 10, "long, empty, short walks"),
+                 [torch.cat(x) for x in zip(*parts)]))
+    for case, args in runs:
+        ka, kr = budgeted_topk_kernel(*args)
+        ra, rr = budgeted_topk_ref(*args)
         torch.cuda.synchronize()
-        if not (torch.equal(kd, rd) and torch.equal(ki, ri)):
-            fail(f"budgeted_topk not bitwise at {(s, n, m, kind)}")
-    v, c, e = inputs(2, 1000, 12, 0)
-    kd, _ = density_sort_kernel(v, c, e, DEFAULT_TILE)
-    rd, _ = density_sort_ref(v, c, e, DEFAULT_TILE)
-    fin = torch.isfinite(rd)
-    err = (kd[fin] - rd[fin]).abs().max().item() if fin.any() else 0.0
-    call = lambda: density_sort_kernel(v, c, e, DEFAULT_TILE)
+        if not (torch.equal(ka, ra)
+                and torch.equal(kr.view(torch.int32), rr.view(torch.int32))):
+            fail(f"budgeted_topk not bitwise at {case}")
+    try:
+        budgeted_topk_kernel(*topk_inputs(dev, 1, MAX_PAIRS + 1, 1, 11))
+    except ValueError:
+        pass
+    else:
+        fail(f"budgeted_topk took N * M = {MAX_PAIRS + 1} > {MAX_PAIRS}")
+    v, c, b, e = args = topk_inputs(dev, 2, 1000, 12, 0, "main")
+    call = lambda: budgeted_topk_kernel(*args)
+    ka, kr = call()
+    ra, rr = budgeted_topk_ref(*args)
+    err = float(max((ka - ra).abs().max().item(),
+                    (kr - rr).abs().max().item()))
     ms, wall = device_ms(call), cuda_ms(call, 200)
     warm = device_ms(call, cold=False)
-    plain = device_ms(lambda: density_sort_ref(v, c, e, DEFAULT_TILE))
-    # library yardstick: one stable sort of the same rows on the
-    # composite (density, index) key
-    b = rd.view(torch.int32).to(torch.int64)
-    key = torch.where(b < 0, b ^ 0x7FFFFFFF, b) * (1 << 32)
-    lib = device_ms(lambda: torch.sort(key, dim=-1, descending=True,
-                                       stable=True))
+    plain = cuda_ms(lambda: budgeted_topk_ref(*args), iters=4, warmup=1)
+    # yardstick of the sort alone: one library sort of the same composite
+    # (density image, flat index) keys, every pair of each seed
     s, n, m = v.shape
-    nt, p = kd.shape[1], kd.shape[2]
-    nbytes = 4 * s * n * m + 4 * s * n + s * n * m + 8 * s * nt * p
-    lg = int(math.log2(p))
-    ops = s * nt * (p // 2) * lg * (lg + 1) // 2
-    bnd, by = bound_ms(nbytes, ops)
-    print(f"  budgeted_topk: densities and indices bitwise on "
-          f"{len(cases)} cases (ties, all ineligible, zero costs, "
-          f"N % tile != 0)")
+    d = pair_density(v, c, e).reshape(s, n * m) + 0.0
+    bits = d.view(torch.int32).to(torch.int64)
+    comp = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits) * (1 << 32) \
+        + torch.arange(n * m, device=dev)
+    sort_ms = device_ms(lambda: torch.sort(comp, dim=-1, descending=True))
+    nbytes = 4 * s * n * m + s * n * m + 4 * s * n + 4 * s * m \
+        + 4 * s * n + 4 * s * m
+    bnd, by = bound_ms(nbytes, s * n * m)
+    picks = int((ka >= 0).sum(dim=1).max())
+    kept = int((pair_density(v, c, e) > 0).sum(dim=(1, 2)).max())
+    chain_ms = picks * PICK_CYCLES / BOOST_CLOCK_HZ * 1e3
+    print(f"  budgeted_topk: assign and remaining bitwise on {len(runs)} "
+          f"cases (main path's statistics, random, ties at N*M = 390, all "
+          f"ineligible, zero costs, negative costs, zero budgets on "
+          f"alternate ES, tight, (1, 1, 1), N*M = {MAX_PAIRS} at 95% "
+          f"eligible, S = 3 with walks of different lengths); N*M = "
+          f"{MAX_PAIRS + 1} refused")
+    for line in _build.BUILD_LOG.get("budgeted_topk", "").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"    ptxas: {line.strip()}")
+    print(f"    dynamic shared memory {smem_bytes(n, m)} B at N={n}, M={m} "
+          f"({smem_bytes(2048, 8)} B at the limit)")
+    print(f"    at {[s, n, m]}: {kept} pairs of density > 0 and {picks} "
+          f"picks in the larger seed; torch.sort of the {n * m} composite "
+          f"keys a seed {sort_ms * 1e3:.2f} us; latency floor of the pick "
+          f"chain {chain_ms * 1e3:.3f} us ({picks} x {PICK_CYCLES} cycles "
+          f"at {BOOST_CLOCK_HZ / 1e9:.2f} GHz); plain version with its host "
+          f"syncs {plain * 1e3:.2f} us a call")
     return dict(name="budgeted_topk", route="cuda",
-                source="src/repro_torch/csrc/density_sort.cu",
+                source="src/repro_torch/csrc/budgeted_topk.cu",
                 replaces="src/repro/kernels/budgeted_topk/kernel.py:96",
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-                bound_by=by, library_ms=lib, shape=[s, n, m, nt, p],
-                wall_ms=wall, warm_ms=warm)
+                max_abs_err=err,
+                ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                library_ms=None, shape=[s, n, m], wall_ms=wall,
+                warm_ms=warm)
 
 
 def masked_aggregate_inputs(dev, r, s, d, seed, kind="random",
@@ -529,6 +592,8 @@ def main_path(dev, profile: bool, preset: str = "metropolis-1k",
     if launches["budgeted_topk"] != horizon:
         fail(f"budgeted_topk launched {launches['budgeted_topk']} times "
              f"in {horizon} rounds")
+    if syncs != 0:
+        fail(f"the budget walk synced with the host {syncs} times on CUDA")
     if launches["masked_aggregate"] < horizon:
         fail(f"masked_aggregate launched {launches['masked_aggregate']} "
              f"times in {horizon} rounds")

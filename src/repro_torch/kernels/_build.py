@@ -24,12 +24,12 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("context_pairwise", "density_sort", "masked_aggregate",
+SOURCES = ("context_pairwise", "budgeted_topk", "masked_aggregate",
            "flash_attention", "rwkv6_scan", "moe_router")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BITWISE = ("--fmad=false",)
-EXTRA_FLAGS = {"context_pairwise": BITWISE, "density_sort": BITWISE,
+EXTRA_FLAGS = {"context_pairwise": BITWISE, "budgeted_topk": BITWISE,
                "masked_aggregate": BITWISE}
 
 

@@ -55,8 +55,10 @@ def on_cuda(first: torch.Tensor, *rest: torch.Tensor) -> bool:
     return first.is_cuda
 
 
-def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
-    """Wrapper-side contract of a kernel argument."""
+def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
+          cuda: bool = True) -> None:
+    """Wrapper-side contract of a kernel argument; ``cuda=False`` leaves
+    the device to a later check."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
@@ -64,7 +66,7 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
-    if not t.is_cuda:
+    if cuda and not t.is_cuda:
         raise ValueError(f"{name}: on {t.device}, expected CUDA")
 
 

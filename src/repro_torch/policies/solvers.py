@@ -2,10 +2,10 @@
 
 ``greedy_assign`` is the P2 density greedy: take the highest-density
 still-feasible (client, ES) pair until none is left, ties toward the
-larger flat index. It runs as the budgeted_topk walk over sorted
-candidate segments (``kernels.budgeted_topk``): the density sort is the
-hand-written CUDA kernel on a CUDA device, its plain version on the CPU,
-and the walk consumes either layout identically.
+larger flat index. It runs as ``kernels.budgeted_topk``: on a CUDA
+device one hand-written kernel does the density, the sort and the budget
+walk for every seed in one launch; on the CPU the plain version walks
+the sorted candidate segments one pick at a time.
 """
 from __future__ import annotations
 

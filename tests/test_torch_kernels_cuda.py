@@ -45,26 +45,85 @@ def test_context_pairwise(dev, s, n, m):
         assert ((a - b).abs() / b.abs()).max().item() <= 5e-6
 
 
-@pytest.mark.parametrize("s,n,m,kind", [(2, 1000, 12, "random"),
-                                        (1, 37, 3, "ties"),
-                                        (2, 64, 12, "ineligible")])
-def test_density_sort(dev, s, n, m, kind):
-    from repro_torch.kernels.budgeted_topk.ops import sorted_candidates
-    from repro_torch.kernels.budgeted_topk.ref import density_sort_ref
-    rng = np.random.default_rng(n)
+def _topk_inputs(dev, s, n, m, kind, seed=0):
+    """values, costs, budgets, eligible for the P2 kernel; ``kind`` as
+    in ``tests/test_torch_budgeted_topk.py``."""
+    rng = np.random.default_rng(seed)
     v = rng.random((s, n, m)).astype(np.float32)
     c = rng.uniform(0.3, 4.0, (s, n)).astype(np.float32)
     e = rng.random((s, n, m)) < 0.4
+    b = np.full((s, m), 3.5, np.float32)
     if kind == "ties":
         v[:], c[:] = 0.5, 1.0
     elif kind == "ineligible":
         e[:] = False
-    v, c, e = (torch.as_tensor(a, device=dev) for a in (v, c, e))
+    elif kind == "negative-cost":       # budgets that grow back
+        c[:, ::5] = -rng.uniform(0.5, 2.0, c[:, ::5].shape)
+        c[:, 1::7] = 0.0
+        b[:, ::3] = -1.0
+    t = lambda a: torch.as_tensor(a, device=dev)
+    return t(v), t(c), t(b), t(e)
+
+
+def _topk_agrees(v, c, b, e):
+    """One launch, no walk sync, assign and remaining bitwise those of
+    the plain version on the same tensors."""
+    from repro_torch.kernels.budgeted_topk.ops import (WALK_SYNCS,
+                                                       budgeted_topk_walk)
+    from repro_torch.kernels.budgeted_topk.ref import budgeted_topk_ref
     before = common.LAUNCHES["budgeted_topk"]
-    kd, ki = sorted_candidates(v, c, e)
+    syncs = WALK_SYNCS["greedy_walk"]
+    ka, kr = budgeted_topk_walk(v, c, b, e)
     assert common.LAUNCHES["budgeted_topk"] == before + 1
-    rd, ri = density_sort_ref(v, c, e)
-    assert torch.equal(kd, rd) and torch.equal(ki, ri)
+    assert WALK_SYNCS["greedy_walk"] == syncs
+    ra, rr = budgeted_topk_ref(v, c, b, e)
+    assert torch.equal(ka, ra)
+    assert torch.equal(kr.view(torch.int32), rr.view(torch.int32))
+    return ka
+
+
+@pytest.mark.parametrize("s,n,m,kind", [(2, 1000, 12, "random"),
+                                        (1, 37, 3, "ties"),
+                                        (2, 130, 3, "ties"),
+                                        (2, 64, 12, "ineligible"),
+                                        (2, 300, 12, "negative-cost"),
+                                        (1, 1, 1, "random"),
+                                        (2, 2048, 8, "random")])
+def test_budgeted_topk(dev, s, n, m, kind):
+    _topk_agrees(*_topk_inputs(dev, s, n, m, kind, seed=n))
+
+
+def test_budgeted_topk_full_sort(dev):
+    """Nearly every pair eligible at N * M = 16384: the 16-keys-a-thread
+    sort of 16,384 keys."""
+    v, c, b, e = _topk_inputs(dev, 2, 2048, 8, "random", seed=5)
+    e = torch.rand(e.shape, generator=torch.Generator(device=dev)
+                   .manual_seed(0), device=dev) < 0.95
+    _topk_agrees(v, c, b, e)
+
+
+def test_budgeted_topk_seeds_of_different_walk_lengths(dev):
+    """A long walk, an empty one and a short one side by side give each
+    seed's own walk."""
+    parts = [_topk_inputs(dev, 1, 400, 6, kind, seed=i)
+             for i, kind in enumerate(("random", "ineligible", "ties"))]
+    parts[2][2].fill_(1.0)                  # one pick an ES
+    stacked = [torch.cat(x) for x in zip(*parts)]
+    got = _topk_agrees(*stacked)
+    for i, one in enumerate(parts):
+        assert torch.equal(got[i:i + 1], _topk_agrees(*one))
+    picks = (got >= 0).sum(dim=1).tolist()
+    assert picks[1] == 0 and picks[0] > picks[2] > 0
+
+
+def test_budgeted_topk_refuses_over_the_limit(dev):
+    from repro_torch.kernels.budgeted_topk.kernel import MAX_PAIRS
+    from repro_torch.kernels.budgeted_topk.ops import budgeted_topk_walk
+    before = common.LAUNCHES["budgeted_topk"]
+    with pytest.raises(ValueError, match=str(MAX_PAIRS)):
+        budgeted_topk_walk(*_topk_inputs(dev, 1, MAX_PAIRS + 1, 1,
+                                         "random"))
+    assert common.LAUNCHES["budgeted_topk"] == before
 
 
 @pytest.mark.parametrize("r,s,d,kind", [(24, 16, 7850, "random"),
