@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py             # every phase, as below
     python3 chip_smoke.py --profile   # also: profiler traces of the
-                                      # HFL main path and of a prefill
-                                      # and decode steps of each LM
-                                      # (kernel time by name, device
-                                      # busy share), and a depth sweep
+                                      # HFL main path (with B1-B3's
+                                      # time a launch inside it) and of
+                                      # a prefill and decode steps of
+                                      # each LM (kernel time by name,
+                                      # device busy share), a depth sweep
                                       # of prefill against decode steps
                                       # of qwen2 and rwkv6
 
@@ -16,16 +17,23 @@ Phases, in order; any failure exits non-zero before a result is printed:
 2. build the six CUDA kernels from ``src/repro_torch/csrc``;
 3. each HFL kernel against its plain PyTorch version on the card, at the
    main path's shapes and at awkward ones, with its device time (summed
-   kernel time under torch.profiler, with the L2 cache flushed before
-   each call), the plain version's and a library call's device time
-   where one exists, and the bound (bytes over 3.35 TB/s, or operations
-   over the peak rate of their type). B2, the one-pass P2 selection
-   (density, sort and budget walk), is held bitwise in assignments and
-   budgets left on eleven cases (negative costs, the size limit, seeds
-   whose walks end apart among them) and must refuse one size over its
-   limit; beside its time, its plain version's with host syncs (CUDA
-   events), ``torch.sort`` of the same keys, the pick chain's latency
-   floor, and its ptxas registers, spills and shared memory;
+   kernel time under torch.profiler, the median of three traces, with
+   the L2 cache flushed before each call), the plain version's and a
+   library call's device time where one exists, and the bound (bytes
+   over 3.35 TB/s, or operations over the peak rate of their type). B1
+   is held bitwise in all four fields on four cases, each field's max
+   error printed a case, with its ptxas registers and spills and its
+   call time through ``ops.pairwise_context``. B3 is held bitwise
+   (``torch.equal``) on eight cases, one and two columns a thread, with
+   its ptxas registers and spills. Then ``launch_floor_us``, the device
+   time of ``torch.cuda._sleep(0)`` timed the same way. B2, the
+   one-pass P2 selection (density, sort and budget walk), is held
+   bitwise in assignments and budgets left on eleven cases (negative
+   costs, the size limit, seeds whose walks end apart among them) and
+   must refuse one size over its limit; beside its time, its plain
+   version's with host syncs (CUDA events), ``torch.sort`` of the same
+   keys, the pick chain's latency floor, and its ptxas registers,
+   spills and shared memory;
 4. the HFL main path: ``sweep_experiments(("cocs",),
    "device:metropolis-1k", seeds=(0, 1), horizon=20, eval_every=5)`` on
    CUDA at full width (1000 clients, 12 ES, 784-d logreg, 200 samples
@@ -33,8 +41,9 @@ Phases, in order; any failure exits non-zero before a result is printed:
    finite metrics, rounds per second and the walk's host syncs, which
    must be 0 (B2 walks on the card). The
    aggregation's slot capacity is each round's largest per-ES cohort,
-   known only once the path ran, so masked_aggregate is checked and
-   timed at the main path's shapes here, at every capacity the run used;
+   known only once the path ran, so masked_aggregate is checked
+   (bitwise) and timed at the main path's shapes here, at every capacity
+   the run used;
 5. the HFL port on the CPU against the port on CUDA (``paper`` preset);
 6. flash_attention against its plain float32 version at the qwen2-1.5b
    prompt's shapes (8, 512, 12 heads, 2 KV heads, 128), on the model
@@ -86,8 +95,8 @@ Phases 4, 8, 9, 10 and 13 each zero the launch counts just before their
 run and read them just after.
 
 The last three lines are the card's name and power limit, a JSON line
-of per-kernel numbers, and ``{"ok": true, "device": {...}}``. Needs no
-network and nothing of the JAX package.
+of per-kernel numbers (with the launch floor), and ``{"ok": true,
+"device": {...}}``. Needs no network and nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -181,7 +190,8 @@ _FLUSH = {}
 
 def device_ms(fn, iters: int = 20, cold: bool = True) -> float:
     """Device time per call: the summed kernel time of ``iters`` calls
-    under torch.profiler, over ``iters``; excludes the host's launch
+    under torch.profiler, over ``iters``, the median of three traces (a
+    single trace now and then reads far off); excludes the host's launch
     overhead, which ``cuda_ms`` includes. With ``cold``, a 256 MB
     ``bitwise_not_`` before each call evicts the 50 MB L2, so inputs
     come from device memory; its kernel is left out of the sum."""
@@ -192,7 +202,8 @@ def device_ms(fn, iters: int = 20, cold: bool = True) -> float:
                                     device="cuda")
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):      # a trace now and then comes back empty
+    traces = []
+    for _ in range(6):      # a trace now and then comes back empty
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 if cold:
@@ -202,8 +213,36 @@ def device_ms(fn, iters: int = 20, cold: bool = True) -> float:
         total_us = sum(e.self_device_time_total for e in kernel_rows(prof)
                        if "bitwise_not" not in e.key)
         if total_us > 0:
-            return total_us / iters / 1e3
-    fail("the profiler recorded no device time")
+            traces.append(total_us / iters / 1e3)
+        if len(traces) == 3:
+            return sorted(traces)[1]
+    fail(f"the profiler recorded device time in {len(traces)} of 6 traces")
+
+
+def launch_floor_ms() -> float:
+    """Device time of an empty launch, ``torch.cuda._sleep(0)``, timed as
+    ``device_ms`` times the kernels: the least any launch takes, against
+    which a kernel far under its bound is judged."""
+    import torch
+    return device_ms(lambda: torch.cuda._sleep(0))
+
+
+def ptxas_lines(name: str) -> None:
+    """nvcc's ``-Xptxas -v`` registers and spills of one source's
+    kernels, a line a kernel (by its mangled name)."""
+    from repro_torch.kernels import _build
+    if name not in _build.BUILD_LOG:
+        print(f"    {name}: built before this run, no ptxas log")
+        return
+    kernel, spills = "?", ""
+    for line in _build.BUILD_LOG[name].splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif "spill stores" in line:
+            spills = line.split(":", 1)[-1].strip()
+        elif "Used" in line and "registers" in line:
+            used = line[line.index("Used"):].split(",")[0]
+            print(f"    ptxas {kernel}: {used}; {spills}")
 
 
 def event_ms(fn, iters: int = 20, cold: bool = True) -> float:
@@ -254,68 +293,101 @@ def bound_ms(nbytes: float, ops: float = 0.0):
 
 # -- phase 3: kernels against their plain versions --------------------------
 
-def check_context_pairwise(dev, spec):
+CONTEXT_FIELDS = ("dist", "gain", "rate", "tau")
+# (S, N, M, seed): the main path's shape, then awkward ones
+CONTEXT_CASES = ((2, 1000, 12, 0), (1, 37, 3, 1), (3, 1, 1, 2),
+                 (2, 257, 5, 3))
+
+
+def context_pairwise_kw(spec) -> dict:
+    return dict(tx_w=spec.tx_w, noise_psd_w=spec.noise_psd_w,
+                update_bits=spec.update_bits, workload=spec.workload)
+
+
+def context_pairwise_inputs(dev, s, n, m, seed):
+    """pos, es, bandwidth, compute, fad_dt, fad_ut for B1: clients over
+    the metropolis area, a few within 10 m of an ES (under the path
+    loss's 0.01 km floor), the last ES of every client in a deep fade."""
     import numpy as np
     import torch
+    from repro_torch.core.network import es_positions
+    rng = np.random.default_rng(seed)
+    es = es_positions(m).astype(np.float32)
+    pos = rng.uniform(-3.5, 3.5, (s, n, 2)).astype(np.float32)
+    k = min(n, 4)                     # a few clients within 10 m of an ES
+    pos[:, :k] = es[0] + rng.uniform(-0.005, 0.005, (s, k, 2))
+    bw = rng.uniform(0.3e6, 1e6, (s, n)).astype(np.float32)
+    comp = rng.uniform(2e6, 4e6, (s, n)).astype(np.float32)
+    fdt = rng.exponential(size=(s, n, m)).astype(np.float32)
+    fut = rng.exponential(size=(s, n, m)).astype(np.float32)
+    fdt[:, -1:] = 1e-7                # weak channels
+    t = lambda a: torch.as_tensor(a, device=dev)
+    return [t(a) for a in (pos, es, bw, comp, fdt, fut)]
+
+
+def context_pairwise_errors(dev, spec, case):
+    """B1 against its plain version at one case: the kernel's and the
+    plain outputs, and each field's max abs error. One launch, counted."""
+    import torch
+    from repro_torch.kernels import common
     from repro_torch.kernels.context_pairwise.kernel import \
         context_pairwise_kernel
     from repro_torch.kernels.context_pairwise.ref import pairwise_context_ref
-    from repro_torch.core.network import es_positions
-    kw = dict(tx_w=spec.tx_w, noise_psd_w=spec.noise_psd_w,
-              update_bits=spec.update_bits, workload=spec.workload)
+    args, kw = context_pairwise_inputs(dev, *case), context_pairwise_kw(spec)
+    before = common.LAUNCHES["context_pairwise"]
+    k = context_pairwise_kernel(*args, **kw)
+    if common.LAUNCHES["context_pairwise"] != before + 1:
+        fail("context_pairwise did not count its launch once")
+    r = pairwise_context_ref(*args, **kw)
+    torch.cuda.synchronize()
+    errs = {f: (getattr(k, f) - getattr(r, f)).abs().max().item()
+            for f in CONTEXT_FIELDS}
+    return k, r, errs
 
-    def inputs(s, n, m, seed):
-        rng = np.random.default_rng(seed)
-        es = es_positions(m).astype(np.float32)
-        pos = rng.uniform(-3.5, 3.5, (s, n, 2)).astype(np.float32)
-        k = min(n, 4)                     # a few clients within 10 m of an ES
-        pos[:, :k] = es[0] + rng.uniform(-0.005, 0.005, (s, k, 2))
-        bw = rng.uniform(0.3e6, 1e6, (s, n)).astype(np.float32)
-        comp = rng.uniform(2e6, 4e6, (s, n)).astype(np.float32)
-        fdt = rng.exponential(size=(s, n, m)).astype(np.float32)
-        fut = rng.exponential(size=(s, n, m)).astype(np.float32)
-        fdt[:, -1:] = 1e-7                # weak channels
-        t = lambda a: torch.as_tensor(a, device=dev)
-        return [t(a) for a in (pos, es, bw, comp, fdt, fut)]
 
-    worst, flips, n_pairs = 0.0, 0, 0
-    for (s, n, m, seed) in ((2, 1000, 12, 0), (1, 37, 3, 1), (3, 1, 1, 2),
-                            (2, 257, 5, 3)):
-        args = inputs(s, n, m, seed)
-        k = context_pairwise_kernel(*args, **kw)
-        r = pairwise_context_ref(*args, **kw)
-        torch.cuda.synchronize()
-        if not torch.equal(k.dist, r.dist):
-            fail(f"context_pairwise dist not bitwise at {(s, n, m)}")
-        for f in ("gain", "rate", "tau"):
+def check_context_pairwise(dev, spec):
+    """B1 bitwise with its plain version in all four fields at every
+    case; its time at the main path's shape."""
+    import torch
+    from repro_torch.kernels.context_pairwise.kernel import \
+        context_pairwise_kernel
+    from repro_torch.kernels.context_pairwise.ops import pairwise_context
+    from repro_torch.kernels.context_pairwise.ref import pairwise_context_ref
+    kw = context_pairwise_kw(spec)
+    flips, n_pairs, err = 0, 0, 0.0
+    for case in CONTEXT_CASES:
+        s, n, m, _ = case
+        k, r, errs = context_pairwise_errors(dev, spec, case)
+        print(f"  context_pairwise at {(s, n, m)}: max abs err "
+              + ", ".join(f"{f} {e:.3e}" for f, e in errs.items()))
+        for f in CONTEXT_FIELDS:
             a, b = getattr(k, f), getattr(r, f)
             if not torch.isfinite(a).all():
                 fail(f"context_pairwise {f} not finite at {(s, n, m)}")
-            rel = ((a - b).abs() / b.abs().clamp(min=1e-30)).max().item()
-            worst = max(worst, rel)
-            if rel > 5e-6:
-                fail(f"context_pairwise {f} rel err {rel} > 5e-6 at "
-                     f"{(s, n, m)}")
+            if not torch.equal(a, b):
+                fail(f"context_pairwise {f} not bitwise at {(s, n, m)}")
         cube = lambda rate: torch.floor(
             torch.clamp(rate / spec.rate_hi, 0, 1) * 5)
         flips += int((cube(k.rate) != cube(r.rate)).sum())
         n_pairs += k.rate.numel()
-    args = inputs(2, 1000, 12, 0)
-    k = context_pairwise_kernel(*args, **kw)
-    r = pairwise_context_ref(*args, **kw)
-    err = max((getattr(k, f) - getattr(r, f)).abs().max().item()
-              for f in ("dist", "gain", "rate", "tau"))
+        if case == CONTEXT_CASES[0]:
+            err = max(errs.values())
+    args = context_pairwise_inputs(dev, *CONTEXT_CASES[0])
     call = lambda: context_pairwise_kernel(*args, **kw)
     ms, wall = device_ms(call), cuda_ms(call, 200)
     warm = device_ms(call, cold=False)
+    ops_wall = cuda_ms(lambda: pairwise_context(*args, **kw), 200)
     plain = device_ms(lambda: pairwise_context_ref(*args, **kw))
     s, n, m = args[4].shape
     nbytes = 4 * (s * n * 2 + m * 2 + 2 * s * n + 2 * s * n * m
                   + 4 * s * n * m)
     bnd, by = bound_ms(nbytes)
-    print(f"  context_pairwise: dist bitwise, gain/rate/tau max rel err "
-          f"{worst:.3e} (<= 5e-6); context-cube flips {flips} of "
-          f"{n_pairs} pairs")
+    print(f"  context_pairwise: all four fields bitwise on "
+          f"{len(CONTEXT_CASES)} cases; context-cube flips {flips} of "
+          f"{n_pairs} pairs; "
+          f"{ops_wall * 1e3:.2f} us a call through ops.pairwise_context "
+          f"(the main path's)")
+    ptxas_lines("context_pairwise")
     return dict(name="context_pairwise", route="cuda",
                 source="src/repro_torch/csrc/context_pairwise.cu",
                 replaces="src/repro/kernels/context_pairwise/kernel.py:62",
@@ -444,7 +516,8 @@ def masked_aggregate_inputs(dev, r, s, d, seed, kind="random",
                             counts=None):
     """params (r, d), deltas (r, s, d), weights (r, s). With ``counts``
     (r,), row i has ``counts[i]`` filled slots (weight 1 with
-    probability 0.8, as deadline arrivals) and weight 0 beyond them."""
+    probability 0.8, as deadline arrivals) and weight 0 beyond them.
+    ``offset``: every tensor starts 4 bytes past an 8-byte boundary."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
@@ -460,20 +533,33 @@ def masked_aggregate_inputs(dev, r, s, d, seed, kind="random",
     elif kind == "padded":
         w[:, s // 2:] = 0.0
         dl[:, s // 2:] = 1e30          # finite garbage in padded slots
-    t = lambda a: torch.as_tensor(a, device=dev)
+
+    def t(a):
+        if kind != "offset":
+            return torch.as_tensor(a, device=dev)
+        buf = torch.empty(a.size + 1, dtype=torch.float32, device=dev)
+        buf[1:].copy_(torch.as_tensor(a.ravel()))
+        return buf[1:].view(a.shape)
     return t(p), t(dl), t(w)
 
 
 def masked_aggregate_agrees(p, dl, w, what) -> float:
+    """B3 bitwise with its plain version on one input; one launch,
+    counted."""
     import torch
+    from repro_torch.kernels import common
     from repro_torch.kernels.masked_aggregate.kernel import \
         masked_aggregate_kernel
     from repro_torch.kernels.masked_aggregate.ref import masked_aggregate_ref
+    before = common.LAUNCHES["masked_aggregate"]
     k = masked_aggregate_kernel(p, dl, w)
+    if common.LAUNCHES["masked_aggregate"] != before + 1:
+        fail("masked_aggregate did not count its launch once")
     ref = masked_aggregate_ref(p, dl, w)
     torch.cuda.synchronize()
-    if not torch.allclose(k, ref, rtol=1e-6, atol=1e-6):
-        fail(f"masked_aggregate differs at {what}")
+    if not torch.equal(k, ref):
+        fail(f"masked_aggregate not bitwise at {what} (max abs err "
+             f"{(k - ref).abs().max().item():.3e})")
     if not torch.isfinite(k).all():
         fail(f"masked_aggregate not finite at {what}")
     return (k - ref).abs().max().item()
@@ -481,18 +567,22 @@ def masked_aggregate_agrees(p, dl, w, what) -> float:
 
 def check_masked_aggregate(dev):
     """The awkward shapes; the main path's shapes are checked after it
-    ran (``masked_aggregate_main``), when its capacities are known."""
+    ran (``masked_aggregate_main``), when its capacities are known.
+    ``offset``: every tensor starts 4 bytes past an 8-byte boundary, so
+    an even D takes the one-column loads."""
     cases = [(24, 1, 7850, 1, "random"), (5, 7, 1000, 2, "zero"),
              (24, 16, 7850, 3, "padded"), (1, 3, 1, 4, "random"),
-             (3, 40, 257, 5, "random")]
+             (3, 40, 257, 5, "random"), (24, 8, 7850, 6, "random"),
+             (24, 9, 7850, 7, "padded"), (24, 27, 7850, 8, "offset")]
     worst = 0.0
     for (r, s, d, seed, kind) in cases:
         worst = max(worst, masked_aggregate_agrees(
             *masked_aggregate_inputs(dev, r, s, d, seed, kind),
             (r, s, d, kind)))
-    print(f"  masked_aggregate: max abs err {worst:.3e} (rtol 1e-6, "
-          f"atol 1e-6) on {len(cases)} cases (one slot, all weights 0, "
-          f"padded slots, 40 slots, D=1)")
+    print(f"  masked_aggregate: bitwise (torch.equal) on {len(cases)} "
+          f"cases (one slot, all weights 0, padded slots of 1e30, D=1, 40 "
+          f"slots, 8 and 9 slots, 27 slots at an offset)")
+    ptxas_lines("masked_aggregate")
     return worst
 
 
@@ -531,8 +621,8 @@ def masked_aggregate_main(dev, counts, d, worst):
             per_cap[cap]["wall_ms"] = cuda_ms(
                 lambda: masked_aggregate_kernel(p, dl, w), 200)
     print(f"  masked_aggregate at the main path's shapes: rows {r}, D {d}, "
-          f"slot capacity per round {caps.tolist()}; agrees with its plain "
-          f"version at every capacity (max abs err {worst:.3e})")
+          f"slot capacity per round {caps.tolist()}; bitwise with its "
+          f"plain version at every capacity")
     for cap, v in per_cap.items():
         extra = ("" if "warm_ms" not in v else
                  f"; {v['warm_ms'] * 1e3:.2f} us warm, "
@@ -653,8 +743,10 @@ def main_path(dev, profile: bool, preset: str = "metropolis-1k",
 def profile_main_path(dev, data, round_s: float):
     """Five rounds of the main path under torch.profiler: device time by
     kernel name, host time by stage (the ``round.*`` labels of
-    ``experiment/fused.py``), and the device's busy share: kernel time
-    per round over the unprofiled wall time per round (``round_s``)."""
+    ``experiment/fused.py``), the device's busy share: kernel time per
+    round over the unprofiled wall time per round (``round_s``), and
+    B1-B3's device time a launch inside the path, where B3 finds the
+    deltas training has just written in the L2."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.experiment.sweep import sweep_experiments
@@ -683,6 +775,13 @@ def profile_main_path(dev, data, round_s: float):
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x"
               f"  {e.key[:90]}")
+    for name in ("context_pairwise", "budgeted_topk", "masked_aggregate"):
+        hand = [e for e in rows if name in e.key]
+        n = sum(e.count for e in hand)
+        if n:
+            print(f"    {name} in the path: {n} launches, "
+                  f"{sum(e.self_device_time_total for e in hand) / n:.2f} "
+                  f"us a launch")
     ops = [e for e in prof.key_averages() if e.key.startswith("aten::")]
     print("  host ops by launches (5 rounds):")
     for e in sorted(ops, key=lambda e: -e.count)[:8]:
@@ -1552,6 +1651,9 @@ def main() -> int:
     spec = simspec.make("metropolis-1k").spec
     rows = [check_context_pairwise(dev, spec), check_budgeted_topk(dev)]
     b3_worst = check_masked_aggregate(dev)
+    floor = launch_floor_ms()
+    print(f"  launch_floor_us {floor * 1e3:.2f} (torch.cuda._sleep(0), "
+          f"timed as the kernels are)")
     for r in rows:
         print_row(r)
 
@@ -1633,8 +1735,8 @@ def main() -> int:
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - START:.1f} s")
     print(card)
-    print(json.dumps({"kernels": rows, "rounds_per_s": rps,
-                      "serve": serve_rows}))
+    print(json.dumps({"kernels": rows, "launch_floor_us": floor * 1e3,
+                      "rounds_per_s": rps, "serve": serve_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

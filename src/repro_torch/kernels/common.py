@@ -89,6 +89,13 @@ def view_strides(t: torch.Tensor, name: str, align: int
     return tuple(out)
 
 
+def raw_stream(t: torch.Tensor) -> int:
+    """The handle of the current CUDA stream of ``t``'s device, as a C
+    launcher takes it: ``torch.cuda.current_stream(dev).cuda_stream``
+    without building a ``Stream`` object on every call."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
 def raise_on_error(code: int, name: str) -> None:
     """The C entry points return ``cudaGetLastError()`` after launch."""
     if code != 0:

@@ -20,29 +20,73 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("s,n,m", [(2, 1000, 12), (1, 37, 3), (3, 1, 1)])
-def test_context_pairwise(dev, s, n, m):
+B1_KW = dict(tx_w=0.19952623149688797, noise_psd_w=3.981071705534969e-21,
+             update_bits=0.18e6, workload=2.41e6)
+
+
+def _context_inputs(dev, s, n, m, seed, dist=None):
+    """pos, es, bandwidth, compute, fad_dt, fad_ut for B1; ``dist``
+    (lo, hi) km puts each client at a log-uniform distance from ES 0."""
     from repro_torch.core.network import es_positions
-    from repro_torch.kernels.context_pairwise.ops import pairwise_context
-    from repro_torch.kernels.context_pairwise.ref import \
-        pairwise_context_ref
-    rng = np.random.default_rng(n)
+    rng = np.random.default_rng(seed)
     t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
-    args = [t(rng.uniform(-3.5, 3.5, (s, n, 2))), t(es_positions(m)),
-            t(rng.uniform(0.3e6, 1e6, (s, n))),
+    es = es_positions(m)
+    pos = rng.uniform(-3.5, 3.5, (s, n, 2))
+    if dist is not None:
+        r = np.exp(rng.uniform(np.log(dist[0]), np.log(dist[1]), (s, n)))
+        a = rng.uniform(0, 2 * np.pi, (s, n))
+        pos = es[0] + np.stack([r * np.cos(a), r * np.sin(a)], axis=-1)
+    return [t(pos), t(es), t(rng.uniform(0.3e6, 1e6, (s, n))),
             t(rng.uniform(2e6, 4e6, (s, n))),
             t(rng.exponential(size=(s, n, m))),
             t(rng.exponential(size=(s, n, m)) * 1e-6)]
-    kw = dict(tx_w=0.19952623149688797, noise_psd_w=3.981071705534969e-21,
-              update_bits=0.18e6, workload=2.41e6)
+
+
+def _context_bitwise(k, r):
+    for f in ("dist", "gain", "rate", "tau"):
+        assert torch.equal(getattr(k, f), getattr(r, f)), f
+
+
+@pytest.mark.parametrize("s,n,m", [(2, 1000, 12), (1, 37, 3), (3, 1, 1)])
+def test_context_pairwise(dev, s, n, m):
+    from repro_torch.kernels.context_pairwise.ops import pairwise_context
+    from repro_torch.kernels.context_pairwise.ref import \
+        pairwise_context_ref
+    args = _context_inputs(dev, s, n, m, n)
     before = common.LAUNCHES["context_pairwise"]
-    k = pairwise_context(*args, **kw)
+    k = pairwise_context(*args, **B1_KW)
     assert common.LAUNCHES["context_pairwise"] == before + 1
-    r = pairwise_context_ref(*args, **kw)
-    assert torch.equal(k.dist, r.dist)
-    for f in ("gain", "rate", "tau"):
-        a, b = getattr(k, f), getattr(r, f)
-        assert ((a - b).abs() / b.abs()).max().item() <= 5e-6
+    _context_bitwise(k, pairwise_context_ref(*args, **B1_KW))
+
+
+def test_context_pairwise_over_the_path_loss_range(dev):
+    """Four million pairs at distances from 1 m to 20 km, past both ends
+    of what the path loss sees (its 0.01 km floor, the area's diagonal):
+    the kernel's 10^x and everything after it bitwise."""
+    from repro_torch.kernels.context_pairwise.ops import pairwise_context
+    from repro_torch.kernels.context_pairwise.ref import \
+        pairwise_context_ref
+    args = _context_inputs(dev, 2, 250_000, 8, 7, dist=(0.001, 20.0))
+    _context_bitwise(pairwise_context(*args, **B1_KW),
+                     pairwise_context_ref(*args, **B1_KW))
+
+
+def test_context_pairwise_wide_indices(dev):
+    """The 64-bit instantiation, which the wrapper takes from 2^31 pairs
+    on, launched through the C entry point at a small shape: the same
+    bits as the 32-bit one."""
+    from repro_torch.kernels.common import raise_on_error
+    from repro_torch.kernels.context_pairwise.kernel import (
+        _consts, _fn, context_pairwise_kernel)
+    args = _context_inputs(dev, 2, 1000, 12, 3)
+    narrow = context_pairwise_kernel(*args, **B1_KW)
+    out = torch.empty((4, 2, 1000, 12), device=dev)
+    raise_on_error(_fn()(*(a.data_ptr() for a in args), out.data_ptr(),
+                         2, 1000, 12, _consts(*B1_KW.values())[1], 1,
+                         torch.cuda.current_stream(dev).cuda_stream),
+                   "context_pairwise")
+    for i, f in enumerate(narrow):
+        assert torch.equal(out[i], f)
 
 
 def _topk_inputs(dev, s, n, m, kind, seed=0):
@@ -128,7 +172,10 @@ def test_budgeted_topk_refuses_over_the_limit(dev):
 
 @pytest.mark.parametrize("r,s,d,kind", [(24, 16, 7850, "random"),
                                         (24, 1, 7850, "random"),
-                                        (5, 7, 100, "zero")])
+                                        (5, 7, 100, "zero"),
+                                        (24, 27, 7850, "random"),
+                                        (3, 9, 257, "random"),
+                                        (24, 27, 7850, "offset")])
 def test_masked_aggregate(dev, r, s, d, kind):
     from repro_torch.kernels.masked_aggregate.ops import \
         masked_aggregate_flat
@@ -143,11 +190,13 @@ def test_masked_aggregate(dev, r, s, d, kind):
                         device=dev)
     if kind == "zero":
         w.zero_()
+    elif kind == "offset":      # 4 bytes past an 8-byte boundary: V = 1
+        p, dl, w = (torch.cat([x.new_zeros(1), x.reshape(-1)])[1:]
+                    .view(x.shape) for x in (p, dl, w))
     before = common.LAUNCHES["masked_aggregate"]
     k = masked_aggregate_flat(p, dl, w)
     assert common.LAUNCHES["masked_aggregate"] == before + 1
-    torch.testing.assert_close(k, masked_aggregate_ref(p, dl, w),
-                               rtol=1e-6, atol=1e-6)
+    assert torch.equal(k, masked_aggregate_ref(p, dl, w))
 
 
 # B4 tolerance: float32 inputs, the kernel's fmaf chains and online

@@ -88,3 +88,79 @@ def test_rows_need_seed_es_slot_weights():
     flat = torch.zeros((3, 4, 130))
     with pytest.raises(ValueError, match="S, M, slots"):
         masked_aggregate_rows(tp, flat, t_(w)[0])
+
+
+# -- the CUDA kernel's order of work, mirrored in numpy --------------------
+
+GROUP = 8       # csrc/masked_aggregate.cu, kGroup
+
+
+def _grouped_mirror(params, deltas, weights, v):
+    """float32 numpy mirror of ``csrc/masked_aggregate.cu``: a thread owns
+    ``v`` adjacent columns; it loads a group of GROUP slots, then adds
+    them in slot order (one multiply and one add each), group after
+    group, the last group cut at ``slots``; one thread of the row sums
+    the weights in slot order into the denominator max(sum, 1)."""
+    r, slots, d = deltas.shape
+    assert d % v == 0
+    out = np.empty((r, d), np.float32)
+    for row in range(r):
+        denom = np.float32(0.0)
+        for s in range(slots):
+            denom = np.float32(denom + weights[row, s])
+        denom = max(denom, np.float32(1.0))
+        acc = np.zeros((d // v, v), np.float32)   # every thread of the row
+        for s0 in range(0, slots, GROUP):
+            n = min(GROUP, slots - s0)
+            buf = deltas[row, s0:s0 + n].reshape(n, d // v, v)  # the loads
+            for j in range(n):
+                acc = acc + weights[row, s0 + j] * buf[j]
+        out[row] = params[row] + acc.reshape(d) / denom
+    return out
+
+
+def _flat(r, slots, d, seed, kind):
+    rng = np.random.default_rng(seed)
+    p = rng.standard_normal((r, d)).astype(np.float32)
+    dl = (rng.standard_normal((r, slots, d)) * 0.01).astype(np.float32)
+    w = (rng.random((r, slots)) < 0.7).astype(np.float32)
+    if kind == "zero":
+        w[:] = 0.0
+    elif kind == "padded":          # padded slots: weight 0, finite garbage
+        w[:, slots // 2:] = 0.0
+        dl[:, slots // 2:] = 1e30
+    elif kind == "weighted":
+        w = rng.uniform(0.0, 2.0, (r, slots)).astype(np.float32)
+    return p, dl, w
+
+
+@pytest.mark.parametrize("kind", ["random", "zero", "padded", "weighted"])
+@pytest.mark.parametrize("slots", [1, 7, 8, 9, 27, 40])
+@pytest.mark.parametrize("d", [1, 257, 7850])
+def test_grouped_mirror_is_bitwise_plain(d, slots, kind):
+    r = 2 if d == 7850 else 3
+    p, dl, w = _flat(r, slots, d, d + slots, kind)
+    want = np_(masked_aggregate_ref(t_(p), t_(dl), t_(w)))
+    for v in (1, 2) if d % 2 == 0 else (1,):
+        got = _grouped_mirror(p, dl, w, v)
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.view(np.int32))
+    if kind == "zero":
+        np.testing.assert_array_equal(want, p)
+
+
+def test_wrapper_refuses_too_many_slots_before_any_build(monkeypatch):
+    """The slot limit (weights and denominator in 48 KB of shared
+    memory) is checked first, so it raises on the CPU too."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.masked_aggregate.kernel import (
+        MAX_SLOTS, masked_aggregate_kernel)
+
+    def no_build(name):
+        raise AssertionError("built")
+    monkeypatch.setattr(_build, "load", no_build)
+    assert (MAX_SLOTS + 1) * 4 == 48 * 1024
+    s = MAX_SLOTS + 1
+    with pytest.raises(ValueError, match="slots"):
+        masked_aggregate_kernel(torch.zeros(1, 1), torch.zeros(1, s, 1),
+                                torch.zeros(1, s))

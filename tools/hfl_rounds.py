@@ -11,7 +11,9 @@ process imports ``ROOT/src``'s ``repro_torch``, builds its kernels into
 times ``sweep_experiments(("cocs",), "device:metropolis-1k", seeds=(0,
 1), horizon=20, eval_every=5)`` on CUDA with 200 synthetic samples a
 client (``chip_smoke.py``'s phase 4) and prints one line: the root,
-rounds per second, the walk's host syncs, the final accuracy per seed.
+rounds per second, the walk's host syncs, the final accuracy per seed
+and a digest of every round's selections (equal digests, equal
+selections).
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import sys
 from pathlib import Path
 
 RUN = r'''
-import json, sys, time
+import hashlib, json, sys, time
 sys.path.insert(0, sys.argv[1] + "/src")
 import torch
 from repro_torch.data.federated import FederatedDataset
@@ -42,7 +44,9 @@ torch.cuda.synchronize()
 wall = time.perf_counter() - t0
 print(json.dumps({"rounds_per_s": 20 / wall,
                   "walk_syncs": topk_ops.WALK_SYNCS["greedy_walk"],
-                  "accuracy": res.accuracy["cocs"][:, -1].tolist()}))
+                  "accuracy": res.accuracy["cocs"][:, -1].tolist(),
+                  "selections": hashlib.sha256(
+                      res.selections["cocs"].tobytes()).hexdigest()[:16]}))
 '''
 
 
