@@ -82,8 +82,13 @@ Phases, in order; any failure exits non-zero before a result is printed:
     decode mask both cut);
 12. moe_router against its plain version at the mixtral prefill's
     (4096, 8, 2), a decode step's (8, 8, 2), a ragged (1000, 8, 2),
-    kimi-k2's width (4096, 384, 8), rows of exact ties (f32 and bf16)
-    and rows whose probabilities underflow; timed as phase 3 times;
+    kimi-k2's width (4096, 384, 8), rows of exact ties (f32 and bf16),
+    rows whose probabilities underflow, rows with a non-finite logit
+    (indices 0..k-1 and NaN gates, as the plain version's), E = 32 and
+    33 (the two paths' edges), rows not 16 bytes long, T = 1, views
+    one row and one element in, and probabilities below 2^-117
+    (``ROUTER_CASES``); its ptxas registers and spills; timed as phase 3
+    times;
 13. mixtral-8x22b served at full width and 8 of its 56 layers in bf16
     (``launch.serve.run``: batch 8, 512-token prompts, 32 greedy tokens)
     after the earlier phases' models are freed: moe_router launched 8
@@ -1369,10 +1374,36 @@ def prefill_vs_steps(dev, arch: str, dtype: str, batch: int,
 
 # -- phase 12: moe_router against its plain version --------------------------
 
+# (T, E, k, kind, dtype): the mixtral prefill's and a decode step's
+# shapes, a ragged T, kimi-k2's width, exact ties, underflowing rows;
+# rows with a non-finite logit; E = 32 (the widest a thread a row) and 33
+# (the narrowest a warp a row); rows not 16 bytes long; T = 1; views one
+# row in and one element in; probabilities below 2^-117, subnormal ones
+# among them
+ROUTER_CASES = (
+    (4096, 8, 2, "normal", "float32"), (8, 8, 2, "normal", "float32"),
+    (1000, 8, 2, "normal", "float32"), (4096, 384, 8, "normal", "float32"),
+    (4096, 8, 2, "normal", "bfloat16"), (1024, 8, 2, "ties", "float32"),
+    (1024, 8, 2, "ties", "bfloat16"), (512, 384, 8, "ties", "bfloat16"),
+    (64, 8, 2, "underflow", "float32"), (64, 384, 8, "underflow", "float32"),
+    (500, 8, 2, "nonfinite", "float32"), (500, 8, 2, "nonfinite", "bfloat16"),
+    (500, 32, 8, "nonfinite", "float32"),
+    (500, 384, 8, "nonfinite", "float32"),
+    (4096, 32, 8, "normal", "float32"), (4096, 33, 8, "normal", "float32"),
+    (1000, 5, 2, "normal", "float32"), (1000, 6, 2, "normal", "bfloat16"),
+    (1, 8, 2, "normal", "float32"), (1000, 8, 2, "row_offset", "float32"),
+    (1000, 8, 2, "elem_offset", "float32"), (1000, 8, 2, "tiny", "float32"),
+    (1000, 32, 8, "tiny", "float32"))
+
+
 def router_inputs(dev, t, e, kind, dtype, seed):
     """(T, E) logits: standard normal; integers in {0, 1, 2} (rows of
-    exact ties); or -200 but one 0 a row (every other probability
-    underflows to 0, so the k-th pick is a tie among zeros)."""
+    exact ties); -200 but one 0 a row (every other probability
+    underflows to 0, so the k-th pick is a tie among zeros); standard
+    normal with four rows in five non-finite (one NaN, one +inf, all
+    -inf, all NaN); standard normal with the upper half of each row 85
+    to 105 lower (probabilities below 2^-117); or standard normal as a
+    contiguous view one row or one element into a larger buffer."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(seed)
     if kind == "ties":
@@ -1380,66 +1411,97 @@ def router_inputs(dev, t, e, kind, dtype, seed):
     elif kind == "underflow":
         x = torch.full((t, e), -200.0, device=dev)
         x[torch.arange(t, device=dev), torch.arange(t, device=dev) % e] = 0.0
+    elif kind == "row_offset":
+        x = torch.randn((t + 1, e), generator=gen, device=dev)[1:]
+    elif kind == "elem_offset":
+        x = torch.randn((t * e + 1,), generator=gen, device=dev)[1:]
+        x = x.view(t, e)
     else:
         x = torch.randn((t, e), generator=gen, device=dev)
+    if kind == "tiny":
+        x[:, e // 2:] = -85.0 - 20.0 * torch.rand(
+            (t, e - e // 2), generator=gen, device=dev)
+    if kind == "nonfinite":
+        rows = torch.arange(t, device=dev)
+        x[rows[0::5], rows[0::5] % e] = float("nan")
+        x[rows[1::5], rows[1::5] % e] = float("inf")
+        x[2::5] = float("-inf")
+        x[3::5] = float("nan")
     return x.to(dtype)
 
 
 def router_agrees(x, k, what):
-    """B6 against its plain version on ``x``. Indices must be equal on
-    every row whose plain probabilities, sorted down to the (k+1)-th, are
-    apart by more than ROUTER_TIE_GAP or exactly equal (a tie: both break
-    it to the lower index); the other rows are counted. Returns (max gate
-    error, undecided rows, rows with a tie)."""
+    """B6 against its plain version on ``x``. On a row with a non-finite
+    logit (every probability NaN) the indices must equal the plain
+    version's, 0..k-1, and the gates be NaN as its are. On the other
+    rows, indices must be equal on every row whose plain probabilities,
+    sorted down to the (k+1)-th, are apart by more than ROUTER_TIE_GAP
+    or exactly equal (a tie: both break it to the lower index); the
+    other rows are counted. Returns (max gate error, undecided rows,
+    rows with a tie, non-finite rows)."""
     import torch
     from repro_torch.kernels.moe_router.kernel import moe_router_kernel
     from repro_torch.kernels.moe_router.ref import moe_router_ref
     g, i = moe_router_kernel(x, k)
     wg, wi = moe_router_ref(x, k)
     torch.cuda.synchronize()
+    if not ((i >= 0) & (i < x.shape[1])).all():
+        fail(f"moe_router index out of range at {what}: "
+             f"{i.min().item()}..{i.max().item()}")
+    bad = ~torch.isfinite(x.float()).all(-1)
+    if not (torch.equal(i[bad], wi[bad])
+            and (i[bad] == torch.arange(k, device=x.device)).all()):
+        fail(f"moe_router indices on non-finite rows at {what} are not "
+             f"0..{k - 1} as the plain version's")
+    if not torch.allclose(g[bad], wg[bad], rtol=0, atol=0, equal_nan=True):
+        fail(f"moe_router gates on non-finite rows at {what} are not NaN "
+             f"as the plain version's")
+    x, g, i, wg, wi = x[~bad], g[~bad], i[~bad], wg[~bad], wi[~bad]
     p = torch.sort(torch.softmax(x.float(), -1), -1, descending=True)[0]
     gaps = p[:, :k] - p[:, 1:k + 1]
     decided = ((gaps > ROUTER_TIE_GAP) | (gaps == 0)).all(-1)
     if not torch.equal(i[decided], wi[decided]):
-        bad = int((i[decided] != wi[decided]).any(-1).sum())
-        fail(f"moe_router indices differ on {bad} decided rows at {what}")
+        bad_rows = int((i[decided] != wi[decided]).any(-1).sum())
+        fail(f"moe_router indices differ on {bad_rows} decided rows at "
+             f"{what}")
     # a tie inside the picks goes to the lower index
     tie = gaps[:, :-1] == 0
     if (tie & (i[:, 1:] < i[:, :-1])).any():
         fail(f"moe_router breaks a tie to the higher index at {what}")
     err = (g - wg).abs().max().item()
     total = (g.sum(-1) - 1.0).abs().max().item()
-    if err > ROUTER_GATE_TOL or total > ROUTER_SUM_TOL:
+    if not (err <= ROUTER_GATE_TOL and total <= ROUTER_SUM_TOL):
         fail(f"moe_router gates off by {err} (sum by {total}) at {what}")
-    if not ((i >= 0) & (i < x.shape[1])).all():
-        fail(f"moe_router index out of range at {what}")
-    return err, int((~decided).sum()), int((gaps == 0).any(-1).sum())
+    return (err, int((~decided).sum()), int((gaps == 0).any(-1).sum()),
+            int(bad.sum()))
+
+
+def router_cases_agree(dev) -> float:
+    """B6 against its plain version on every case of ROUTER_CASES, a
+    line a case; returns the largest gate error."""
+    import torch
+    worst = 0.0
+    for n, (t, e, k, kind, dtype) in enumerate(ROUTER_CASES):
+        what = (t, e, k, kind, dtype)
+        x = router_inputs(dev, t, e, kind, getattr(torch, dtype), 20 + n)
+        err, undecided, tied, nonfinite = router_agrees(x, k, what)
+        worst = max(worst, err)
+        print(f"  moe_router {what}: max gate err {err:.3e}; rows with a "
+              f"tie {tied}, non-finite {nonfinite}, left undecided (a gap "
+              f"<= {ROUTER_TIE_GAP}) {undecided} of {t}")
+    return worst
 
 
 def check_moe_router(dev):
-    """B6 at the mixtral prefill's (T, E, k) = (4096, 8, 2), a decode
-    step's (8, 8, 2), a ragged (1000, 8, 2), kimi-k2's (4096, 384, 8), rows
-    of exact ties in f32 and bf16 and underflowing rows. Timed at the
-    prefill's and the decode's shapes in float32, the dtype of the
+    """B6 on ROUTER_CASES with its ptxas registers and spills. Timed at
+    the prefill's and the decode's shapes in float32, the dtype of the
     router's logits on the serve path."""
     import torch
     from repro_torch.kernels.moe_router.kernel import moe_router_kernel
     from repro_torch.kernels.moe_router.ref import moe_router_ref
-    f32, bf16 = torch.float32, torch.bfloat16
-    cases = [(4096, 8, 2, "normal", f32), (8, 8, 2, "normal", f32),
-             (1000, 8, 2, "normal", f32), (4096, 384, 8, "normal", f32),
-             (4096, 8, 2, "normal", bf16), (1024, 8, 2, "ties", f32),
-             (1024, 8, 2, "ties", bf16), (512, 384, 8, "ties", bf16),
-             (64, 8, 2, "underflow", f32), (64, 384, 8, "underflow", f32)]
-    worst = 0.0
-    for n, (t, e, k, kind, dtype) in enumerate(cases):
-        what = (t, e, k, kind, str(dtype)[6:])
-        x = router_inputs(dev, t, e, kind, dtype, 20 + n)
-        err, undecided, tied = router_agrees(x, k, what)
-        worst = max(worst, err)
-        print(f"  moe_router {what}: max gate err {err:.3e}; rows with a "
-              f"tie {tied}, rows left undecided (a gap <= {ROUTER_TIE_GAP}) "
-              f"{undecided} of {t}")
+    f32 = torch.float32
+    ptxas_lines("moe_router")
+    worst = router_cases_agree(dev)
     times = {}
     for t in (4096, 8):
         x = router_inputs(dev, t, 8, "normal", f32, 1)

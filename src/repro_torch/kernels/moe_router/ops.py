@@ -38,6 +38,7 @@ def moe_router(logits: torch.Tensor, top_k: int
     to 1, expert indices (T, k) int32."""
     if on_cuda(logits):
         from repro_torch.kernels.moe_router.kernel import moe_router_kernel
-        return moe_router_kernel(logits.contiguous(), top_k)
+        return moe_router_kernel(logits if logits.is_contiguous()
+                                 else logits.contiguous(), top_k)
     check_router_args(logits, top_k)
     return moe_router_ref(logits, top_k)

@@ -358,7 +358,9 @@ def test_rwkv6_scan_view_alignment(dev, dtype):
 # probabilities, down to the (k+1)-th, are apart by more than 1e-6 or
 # exactly equal (a tie, which both resolve to the lower index); gates
 # within 1e-6 (float32 softmaxes summed in another order), each row's
-# sum 1 within 1e-5.
+# sum 1 within 1e-5. On a row with a non-finite logit (a NaN, a +inf,
+# all -inf or all NaN: every probability NaN) the indices equal the
+# plain version's, 0..k-1, and the gates are NaN.
 @pytest.mark.parametrize("t,e,k,kind,dtype", [
     (4096, 8, 2, "normal", torch.float32),
     (8, 8, 2, "normal", torch.bfloat16),
@@ -367,6 +369,19 @@ def test_rwkv6_scan_view_alignment(dev, dtype):
     (512, 8, 2, "ties", torch.float32),
     (512, 64, 8, "ties", torch.bfloat16),
     (64, 8, 2, "underflow", torch.float32),
+    (500, 8, 2, "nonfinite", torch.float32),
+    (500, 8, 2, "nonfinite", torch.bfloat16),
+    (500, 32, 8, "nonfinite", torch.float32),
+    (500, 384, 8, "nonfinite", torch.float32),
+    (1000, 32, 8, "normal", torch.float32),     # widest thread-a-row
+    (1000, 33, 8, "normal", torch.float32),     # narrowest warp-a-row
+    (1000, 5, 2, "normal", torch.float32),      # rows not 16-byte aligned
+    (1000, 6, 2, "normal", torch.bfloat16),
+    (1, 8, 2, "normal", torch.float32),
+    (1000, 8, 2, "row_offset", torch.float32),  # a view one row in
+    (1000, 8, 2, "elem_offset", torch.float32),  # base not 16-byte aligned
+    (1000, 8, 2, "tiny", torch.float32),        # p below 2^-117
+    (1000, 32, 8, "tiny", torch.float32),
 ])
 def test_moe_router(dev, t, e, k, kind, dtype):
     from repro_torch.kernels.moe_router.ops import moe_router
@@ -374,15 +389,36 @@ def test_moe_router(dev, t, e, k, kind, dtype):
     gen = torch.Generator(device=dev).manual_seed(t + e)
     if kind == "ties":
         x = torch.randint(0, 3, (t, e), generator=gen, device=dev).float()
+    elif kind == "row_offset":
+        x = torch.randn((t + 1, e), generator=gen, device=dev)[1:]
+    elif kind == "elem_offset":
+        x = torch.randn((t * e + 1,), generator=gen, device=dev)[1:]
+        x = x.view(t, e)
     else:
         x = torch.randn((t, e), generator=gen, device=dev)
     if kind == "underflow":
         x[:, 1:] -= 200.0
+    if kind == "tiny":      # half the row 85-105 below the rest
+        x[:, e // 2:] = -85.0 - 20.0 * torch.rand(
+            (t, e - e // 2), generator=gen, device=dev)
+    if kind == "nonfinite":
+        rows = torch.arange(t, device=dev)
+        x[rows[0::5], rows[0::5] % e] = float("nan")
+        x[rows[1::5], rows[1::5] % e] = float("inf")
+        x[2::5] = float("-inf")
+        x[3::5] = float("nan")
     x = x.to(dtype)
+    assert x.is_contiguous()
     before = common.LAUNCHES["moe_router"]
     g, i = moe_router(x, k)
     assert common.LAUNCHES["moe_router"] == before + 1
     wg, wi = moe_router_ref(x, k)
+    bad = ~torch.isfinite(x.float()).all(-1)
+    assert int(bad.sum()) == (4 * t // 5 if kind == "nonfinite" else 0)
+    assert torch.equal(i[bad], wi[bad])
+    assert (i[bad] == torch.arange(k, device=dev)).all()
+    assert g[bad].isnan().all() and wg[bad].isnan().all()
+    x, g, i, wg, wi = x[~bad], g[~bad], i[~bad], wg[~bad], wi[~bad]
     p = torch.sort(torch.softmax(x.float(), -1), -1, descending=True)[0]
     gaps = (p[:, :k] - p[:, 1:k + 1]).abs()
     decided = ((gaps > 1e-6) | (gaps == 0)).all(-1)

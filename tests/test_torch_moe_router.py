@@ -115,3 +115,178 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(shape, k, dtype,
                                                        err):
     with pytest.raises(err):
         moe_router(torch.zeros(shape, dtype=dtype), k)
+
+
+# -- rows whose softmax sum is not finite --------------------------------
+
+def _nonfinite(t, e, pattern, seed):
+    """(T, E) standard normal logits whose even rows hold ``pattern``:
+    one NaN, one +inf, all -inf or all NaN. Every probability of such a
+    row is NaN."""
+    x = np.random.default_rng(seed).standard_normal((t, e)).astype(
+        np.float32)
+    rows = np.arange(0, t, 2)
+    if pattern == "nan":
+        x[rows, rows % e] = np.nan
+    elif pattern == "inf":
+        x[rows, (rows + 5) % e] = np.inf
+    elif pattern == "neginf":
+        x[rows] = -np.inf
+    else:
+        x[rows] = np.nan
+    return x
+
+
+def _assert_nonfinite_route(g, i, wg, wi, bad):
+    """Indices equal everywhere; gates NaN exactly where the
+    reference's are (the rows in ``bad``), and on the other rows as
+    ``_assert_route`` holds them."""
+    g, i, wg, wi = np_(g), np_(i), np.asarray(wg), np.asarray(wi)
+    np.testing.assert_array_equal(i, wi)
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(wg))
+    assert np.isnan(wg[bad]).all() and not np.isnan(wg[~bad]).any()
+    np.testing.assert_array_equal(i[bad], np.broadcast_to(
+        np.arange(i.shape[1]), i[bad].shape))
+    np.testing.assert_allclose(g[~bad], wg[~bad], atol=GATE_TOL, rtol=0)
+    np.testing.assert_allclose(g[~bad].sum(-1), 1.0, atol=SUM_TOL)
+
+
+@pytest.mark.parametrize("e,k", [(8, 2), (384, 8)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("pattern", ["nan", "inf", "neginf", "allnan"])
+def test_nonfinite_rows_follow_the_reference(pattern, dtype, e, k):
+    """A row with a NaN or +inf logit, or all -inf: the reference's
+    ``moe_router_ref`` and ``route``'s ``lax.top_k`` rank NaN above
+    every number and give indices 0..k-1 with NaN gates; so does the
+    port's plain version."""
+    x = _nonfinite(16, e, pattern, e + len(pattern))
+    bad = np.arange(16) % 2 == 0
+    g, i, wg, wi = _both(x, k, dtype)
+    _assert_nonfinite_route(g, i, wg, wi, bad)
+    jd = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    probs = jax.nn.softmax(jnp.asarray(x, jd).astype(jnp.float32), axis=-1)
+    _, want = jax.lax.top_k(probs, k)
+    np.testing.assert_array_equal(np_(i), np.asarray(want))
+
+
+# -- the CUDA kernel's thread-a-row path, mirrored in numpy --------------
+
+def _row_mirror(x, k):
+    """float32 mirror of the kernel's thread-a-row path (E <= 32): per
+    row, the max (``fmaxf``: a NaN operand gives the other) and the sum
+    in index order, each probability by one division; a row whose sum
+    is NaN takes experts 0..k-1 with NaN gates, any other row k rounds
+    over the untaken experts by "strictly greater" in index order, the
+    gates divided by the sum of the picks in round order."""
+    t, e = x.shape
+    gates = np.empty((t, k), np.float32)
+    idx = np.empty((t, k), np.int32)
+    with np.errstate(all="ignore"):
+        for r in range(t):
+            m = np.float32(-np.inf)
+            for j in range(e):
+                m = np.fmax(m, x[r, j])
+            p = np.empty(e, np.float32)
+            s = np.float32(0.0)
+            for j in range(e):
+                p[j] = np.exp(x[r, j] - m)
+                s = np.float32(s + p[j])
+            p = p / s
+            if np.isnan(s):
+                gates[r], idx[r] = p[:k], np.arange(k)
+                continue
+            taken, total = 0, np.float32(0.0)
+            for rnd in range(k):
+                bv, bi = np.float32(-1.0), 0
+                for j in range(e):
+                    if not (taken >> j) & 1 and p[j] > bv:
+                        bv, bi = p[j], j
+                taken |= 1 << bi
+                gates[r, rnd], idx[r, rnd] = bv, bi
+                total = np.float32(total + bv)
+            gates[r] = gates[r] / total
+    return gates, idx
+
+
+def _mirror_inputs(t, e, kind, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "ties":
+        return rng.integers(0, 3, (t, e)).astype(np.float32)
+    if kind == "underflow":                    # R7: one 0, the rest -200
+        x = np.full((t, e), -200.0, np.float32)
+        x[np.arange(t), np.arange(t) % e] = 0.0
+        return x
+    x = rng.standard_normal((t, e)).astype(np.float32)
+    if kind == "tiny":     # probabilities in (0, 2^-117): subnormal ones
+        x[:, e // 2:] = -85.0 - 20.0 * rng.random((t, e - e // 2))
+    if kind == "nonfinite":                    # rows of each pattern
+        rows = np.arange(t)
+        x[rows[0::5], rows[0::5] % e] = np.nan
+        x[rows[1::5], rows[1::5] % e] = np.inf
+        x[2::5] = -np.inf
+        x[3::5] = np.nan
+    return x
+
+
+@pytest.mark.parametrize("e,k", [(1, 1), (8, 2), (32, 8)])
+@pytest.mark.parametrize("kind", ["normal", "ties", "underflow", "tiny",
+                                  "nonfinite"])
+def test_thread_a_row_mirror_matches_reference(kind, e, k):
+    """The kernel's pick for E <= 32 (index-order max and sum, a taken
+    mask, a NaN row's experts 0..k-1) against the reference's ``moe_router_ref``:
+    indices equal on every row whose reference probabilities, sorted down
+    to the (k+1)-th, are apart by more than 1e-6 or exactly equal (as
+    the CUDA tests hold the kernel), gates within GATE_TOL; on
+    non-finite rows indices 0..k-1 and NaN gates."""
+    x = _mirror_inputs(64, e, kind, 3 * e + len(kind))
+    g, i = _row_mirror(x, k)
+    wg, wi = (np.asarray(a) for a in jax_ref(jnp.asarray(x), k))
+    bad = ~np.isfinite(x).all(-1)
+    assert bad.any() == (kind == "nonfinite")
+    np.testing.assert_array_equal(i[bad], wi[bad])
+    np.testing.assert_array_equal(i[bad], np.broadcast_to(np.arange(k),
+                                                          i[bad].shape))
+    assert np.isnan(g[bad]).all() and np.isnan(wg[bad]).all()
+    probs = np.sort(np.asarray(jax.nn.softmax(jnp.asarray(x[~bad]))),
+                    -1)[:, ::-1]
+    probs = np.concatenate([probs, np.zeros((len(probs), 1), np.float32)],
+                           -1)                  # a k+1-th where k = E
+    gaps = probs[:, :k] - probs[:, 1:k + 1]
+    decided = ((gaps > 1e-6) | (gaps == 0)).all(-1)
+    assert decided.mean() > 0.95
+    np.testing.assert_array_equal(i[~bad][decided], wi[~bad][decided])
+    np.testing.assert_allclose(g[~bad], wg[~bad], atol=GATE_TOL, rtol=0)
+    np.testing.assert_allclose(g[~bad].sum(-1), 1.0, atol=SUM_TOL)
+    if kind == "underflow":
+        np.testing.assert_array_equal(i[:, 0], np.arange(64) % e)
+
+
+# -- the CUDA wrapper's refusals, before anything is built ---------------
+
+@pytest.mark.parametrize("what,error,says", [
+    ("E above 384", ValueError, "experts"),
+    ("k above E", ValueError, "top_k"),
+    ("float16", TypeError, "dtype"),
+    ("1-d", ValueError, "shape"),
+    ("not contiguous", ValueError, "contiguous"),
+    ("on the cpu", ValueError, "expected CUDA"),
+])
+def test_kernel_wrapper_refuses_before_building(monkeypatch, what, error,
+                                                says):
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.moe_router import kernel
+
+    def no_build(name):
+        raise AssertionError(f"built {name}")
+    monkeypatch.setattr(_build, "load", no_build)
+    x = torch.zeros((4, 8))
+    if what == "E above 384":
+        x = torch.zeros((4, 385))
+    elif what == "float16":
+        x = x.half()
+    elif what == "1-d":
+        x = x[0]
+    elif what == "not contiguous":
+        x = torch.zeros((8, 4)).t()
+    with pytest.raises(error, match=says):
+        kernel.moe_router_kernel(x, 9 if what == "k above E" else 2)
