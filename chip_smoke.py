@@ -4,7 +4,8 @@
     python3 chip_smoke.py             # every phase, as below
     python3 chip_smoke.py --profile   # also: profiler traces of the
                                       # HFL main path (with B1-B3's
-                                      # time a launch inside it) and of
+                                      # time a launch inside it), of
+                                      # the non-convex path, and of
                                       # a prefill and decode steps of
                                       # each LM (kernel time by name,
                                       # device busy share), a depth sweep
@@ -14,7 +15,8 @@
 Phases, in order; any failure exits non-zero before a result is printed:
 
 1. header: the card (nvidia-smi), torch and CUDA versions; TF32 off;
-2. build the six CUDA kernels from ``src/repro_torch/csrc``;
+2. build the eight CUDA kernels from ``src/repro_torch/csrc`` (the six
+   that replace TPU kernels, Random's scan and P3's walk);
 3. each HFL kernel against its plain PyTorch version on the card, at the
    main path's shapes and at awkward ones, with its device time (summed
    kernel time under torch.profiler, the median of three traces, with
@@ -33,18 +35,25 @@ Phases, in order; any failure exits non-zero before a result is printed:
    must refuse one size over its limit; beside its time, its plain
    version's with host syncs (CUDA events), ``torch.sort`` of the same
    keys, the pick chain's latency floor, and its ptxas registers,
-   spills and shared memory;
-4. the HFL main path: ``sweep_experiments(("cocs",),
+   spills and shared memory. P3's walk (``flgreedy_walk``, after B2's
+   keys-only launch, whose keys and counts are held bitwise too) and
+   Random's scan (``random_assign``) are held bitwise in assignments and
+   budgets left on nine cases each (``P3_CASES``, ``RANDOM_CASES``),
+   with 0 walk host syncs, and timed cold, warm and as a call beside
+   their plain versions and bounds;
+4. the HFL main path: ``sweep_experiments((policy,),
    "device:metropolis-1k", seeds=(0, 1), horizon=20, eval_every=5)`` on
    CUDA at full width (1000 clients, 12 ES, 784-d logreg, 200 samples
-   per client), with each kernel's launch count, budget feasibility,
-   finite metrics, rounds per second and the walk's host syncs, which
-   must be 0 (B2 walks on the card). The
+   per client) for each of cocs, oracle and random, the counts set to 0
+   before each run: each kernel's launch count (B2 for cocs and oracle,
+   Random's scan for random), budget feasibility, finite metrics,
+   rounds per second and the walks' host syncs, which must be 0. The
    aggregation's slot capacity is each round's largest per-ES cohort,
    known only once the path ran, so masked_aggregate is checked
    (bitwise) and timed at the main path's shapes here, at every capacity
    the run used;
-5. the HFL port on the CPU against the port on CUDA (``paper`` preset);
+5. the HFL port on the CPU against the port on CUDA, the three policies
+   on ``paper`` and ``flash-crowd``;
 6. flash_attention against its plain float32 version at the qwen2-1.5b
    prompt's shapes (8, 512, 12 heads, 2 KV heads, 128), on the model
    layout's transposed views as the serve path passes them: bf16 (the
@@ -94,10 +103,24 @@ Phases, in order; any failure exits non-zero before a result is printed:
     after the earlier phases' models are freed: moe_router launched 8
     times a forward (8 x 32 in all), flash_attention 8 times, peak
     memory; its prefill against token-by-token decode steps in bf16 and
-    in float32 (4 layers, the float32 weights of 8 do not fit).
+    in float32 (4 layers, the float32 weights of 8 do not fit);
+14. the non-convex path: the three policies on ``paper`` under
+    ``CIFAR10_NONCONVEX`` (P3, the sqrt utility) with the CNN at 32x32x3
+    (1,756,426 parameters), 2 seeds, on CUDA. First as configured, lr =
+    0.1, where the CNN diverges as on the reference (R11): it prints the
+    loss and gates launches, host syncs, budgets and selections only.
+    Then with one change, lr = 0.005: it also fails on a non-finite test
+    or training loss, on local SGD that does not lower the training loss
+    (for each policy and seed, the mean over rounds of the loss at the
+    last local step against the first), and, on seed 0 run on the CPU
+    and on CUDA (cuDNN's deterministic algorithms), on an accuracy gap
+    above 1e-3 (2 of 2000 test samples) or any selection row that
+    differs. The test loss is printed, not gated: on this synthetic data
+    it shows no trend over 60 rounds at either lr (accuracy stays near
+    0.1). B3 at the CNN's width at the capacities the gated run used.
 
-Phases 4, 8, 9, 10 and 13 each zero the launch counts just before their
-run and read them just after.
+Phases 4, 8, 9, 10, 13 and 14 each zero the launch counts just before
+their run and read them just after.
 
 The last three lines are the card's name and power limit, a JSON line
 of per-kernel numbers (with the launch floor), and ``{"ok": true,
@@ -191,6 +214,31 @@ def kernel_rows(prof):
 
 
 _FLUSH = {}
+# how each device_ms result was taken: "profiler" (summed kernel time) or
+# "events" (CUDA events around each call, where the profiler's traces
+# came back empty); printed after phase 3 and in the JSON line
+TIMED_WITH = {"profiler": 0, "events": 0}
+
+
+def _event_ms(fn, iters: int, cold: bool) -> float:
+    """Device time per call from a pair of CUDA events around each of
+    ``iters`` calls (the flush before each call, with ``cold``, stays
+    outside the pair). A ~2 ms spin first holds the device while the
+    host queues every call, so a pair does not wait on the host's
+    launches; unlike the profiler's sum it still counts the events' own
+    cost and gaps between the kernels of one call."""
+    import torch
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda._sleep(4_000_000)
+    for a, b in pairs:
+        if cold:
+            _FLUSH["buf"].bitwise_not_()
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
 def device_ms(fn, iters: int = 20, cold: bool = True) -> float:
@@ -199,7 +247,10 @@ def device_ms(fn, iters: int = 20, cold: bool = True) -> float:
     single trace now and then reads far off); excludes the host's launch
     overhead, which ``cuda_ms`` includes. With ``cold``, a 256 MB
     ``bitwise_not_`` before each call evicts the 50 MB L2, so inputs
-    come from device memory; its kernel is left out of the sum."""
+    come from device memory; its kernel is left out of the sum. The
+    profiler's trace now and then comes back with no device time; where
+    fewer than three of six traces hold any, the time is the median of
+    three ``_event_ms`` runs instead, and the fallback is printed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     if "buf" not in _FLUSH:
@@ -208,7 +259,7 @@ def device_ms(fn, iters: int = 20, cold: bool = True) -> float:
     fn()
     torch.cuda.synchronize()
     traces = []
-    for _ in range(6):      # a trace now and then comes back empty
+    for _ in range(6):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 if cold:
@@ -220,8 +271,13 @@ def device_ms(fn, iters: int = 20, cold: bool = True) -> float:
         if total_us > 0:
             traces.append(total_us / iters / 1e3)
         if len(traces) == 3:
+            TIMED_WITH["profiler"] += 1
             return sorted(traces)[1]
-    fail(f"the profiler recorded device time in {len(traces)} of 6 traces")
+    TIMED_WITH["events"] += 1
+    ms = sorted(_event_ms(fn, iters, cold) for _ in range(3))[1]
+    print(f"    (the profiler recorded device time in {len(traces)} of 6 "
+          f"traces; timed with CUDA events instead: {ms * 1e3:.2f} us)")
+    return ms
 
 
 def launch_floor_ms() -> float:
@@ -410,9 +466,16 @@ def topk_inputs(dev, s, n, m, seed, kind="random"):
     rng = np.random.default_rng(seed)
     v = rng.random((s, n, m)).astype(np.float32)
     c = rng.uniform(0.3, 4.0, (s, n)).astype(np.float32)
-    e = rng.random((s, n, m)) < {"main": 0.285, "full": 0.95}.get(kind, 0.4)
-    b = np.full((s, m), 12.0 if kind == "main" else 3.5, np.float32)
-    if kind == "ties":
+    e = rng.random((s, n, m)) < {"main": 0.285, "full": 0.95,
+                                 "nonconvex": 0.6}.get(kind, 0.4)
+    b = np.full((s, m), {"main": 12.0, "nonconvex": 40.0}.get(kind, 3.5),
+                np.float32)
+    if kind == "nonconvex":            # CIFAR10_NONCONVEX's costs, 2-16
+        c = rng.uniform(2.0, 16.0, (s, n)).astype(np.float32)
+    elif kind == "coarse":             # few distinct rates: ties
+        v = np.round(v * 3) / 3
+        c = np.round(c)
+    elif kind == "ties":
         v[:] = 0.5
         c[:] = 1.0
     elif kind == "ineligible":
@@ -515,6 +578,195 @@ def check_budgeted_topk(dev):
                 ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                 library_ms=None, shape=[s, n, m], wall_ms=wall,
                 warm_ms=warm)
+
+
+# (S, N, M, kind): the non-convex path's shape first, then metropolis-1k's
+# and awkward ones
+P3_CASES = ((2, 50, 3, "nonconvex"), (2, 1000, 12, "main"),
+            (2, 130, 3, "ties"), (3, 130, 5, "coarse"),
+            (2, 64, 12, "ineligible"), (2, 300, 7, "zero-cost"),
+            (2, 300, 12, "negative-cost"), (1, 1, 1, "random"),
+            (2, 2048, 8, "full"))
+
+
+def check_flgreedy_walk(dev):
+    """P3's walk: B2's keys-only launch held bitwise (keys, counts) against
+    its plain sort, the walk held bitwise (assign, remaining) against the
+    plain P3 walk, on ``P3_CASES`` and three seeds of different walk
+    lengths side by side; no host sync in either launch. Timed (the walk
+    kernel alone, on the keys) at the non-convex path's shape, with the
+    plain walk on prebuilt segments."""
+    import torch
+    from repro_torch.kernels import common
+    from repro_torch.kernels.budgeted_topk.kernel import (
+        budgeted_topk_keys_kernel, flgreedy_walk_kernel, key_capacity)
+    from repro_torch.kernels.budgeted_topk.ops import (WALK_SYNCS,
+                                                       flgreedy_topk_walk)
+    from repro_torch.kernels.budgeted_topk.ref import (
+        build_segments, candidate_keys_ref, flgreedy_topk_ref,
+        flgreedy_walk)
+    runs = [(c, topk_inputs(dev, c[0], c[1], c[2], i, c[3]))
+            for i, c in enumerate(P3_CASES)]
+    parts = [topk_inputs(dev, 1, 400, 6, 20 + i, k)
+             for i, k in enumerate(("random", "ineligible", "one-each"))]
+    runs.append(((3, 400, 6, "long, empty, short walks"),
+                 [torch.cat(x) for x in zip(*parts)]))
+    picks = {}
+    for case, (v, c, b, e) in runs:
+        s, n, m = v.shape
+        before = dict(common.LAUNCHES)
+        syncs = WALK_SYNCS["flgreedy_walk"]
+        keys, counts = budgeted_topk_keys_kernel(v, c, e)
+        ka, kr = flgreedy_walk_kernel(keys, counts, v, c, b)
+        kops = flgreedy_topk_walk(v, c, b, e)[0]
+        for name in ("budgeted_topk", "flgreedy_walk"):
+            if common.LAUNCHES[name] != before[name] + 2:
+                fail(f"{name} did not count its launch once a call at "
+                     f"{case}")
+        if WALK_SYNCS["flgreedy_walk"] != syncs:
+            fail(f"P3's walk synced with the host on CUDA at {case}")
+        rk, rc = candidate_keys_ref(v, c, e, key_capacity(n, m))
+        ra, rr = flgreedy_topk_ref(v, c, b, e)
+        torch.cuda.synchronize()
+        if not (torch.equal(keys, rk) and torch.equal(counts, rc)):
+            fail(f"budgeted_topk's keys-only sort not bitwise at {case}")
+        if not (torch.equal(ka, ra)
+                and torch.equal(kr.view(torch.int32), rr.view(torch.int32))):
+            fail(f"flgreedy_walk not bitwise at {case}")
+        if not torch.equal(kops, ra):
+            fail(f"ops.flgreedy_topk_walk not bitwise at {case}")
+        picks[case] = int((ka >= 0).sum(dim=1).max())
+    syncs_after = WALK_SYNCS["flgreedy_walk"]
+    print(f"  flgreedy_walk: B2's keys and counts, then assign and "
+          f"remaining, bitwise on {len(runs)} cases (the non-convex "
+          f"path's statistics, metropolis-1k's, ties, coarse rates, all "
+          f"ineligible, zero and negative costs, (1, 1, 1), N*M = 16384 "
+          f"at 95% eligible, S = 3 with walks of different lengths); "
+          f"walk host syncs on CUDA: 0; picks in the larger seed "
+          f"{list(picks.values())}")
+    ptxas_lines("flgreedy_walk")
+    out = {}
+    for case in P3_CASES[:2]:
+        v, c, b, e = args = topk_inputs(dev, case[0], case[1], case[2], 0,
+                                        case[3])
+        s, n, m = v.shape
+        keys, counts = budgeted_topk_keys_kernel(v, c, e)
+        call = lambda: flgreedy_walk_kernel(keys, counts, v, c, b)
+        ka, kr = call()
+        ra, rr = flgreedy_topk_ref(*args)
+        err = float(max((ka - ra).abs().max().item(),
+                        (kr - rr).abs().max().item()))
+        segs = build_segments(v, c, e, n)
+        plain = cuda_ms(lambda: flgreedy_walk(segs, b, num_es=m,
+                                              num_clients=n, m_div=float(m)),
+                        iters=4, warmup=1)
+        ms, warm = device_ms(call), device_ms(call, cold=False)
+        wall = cuda_ms(call, 200)
+        sort_ms = device_ms(lambda: budgeted_topk_keys_kernel(v, c, e))
+        # bytes: values, costs, keys, budgets in; assign, remaining out;
+        # operations: ~10 float operations (two roots, a division) per
+        # candidate rescored, every candidate at every pick (+1 final)
+        cand = int(counts.max())
+        npick = int((ka >= 0).sum(dim=1).max())
+        nbytes = 4 * s * n * m + 8 * s * n + 8 * int(counts.sum()) \
+            + 8 * s * m
+        bnd, by = bound_ms(nbytes, 10.0 * s * cand * (npick + 1))
+        print(f"    at {[s, n, m]} ({case[3]}): {cand} candidates and "
+              f"{npick} picks in the larger seed; walk kernel "
+              f"{ms * 1e3:.2f} us cold, {warm * 1e3:.2f} warm, "
+              f"{wall * 1e3:.2f} a call; B2's keys-only launch "
+              f"{sort_ms * 1e3:.2f} us; plain walk {plain * 1e3:.2f} us "
+              f"with its host syncs; bound {bnd * 1e3:.3f} us ({by})")
+        out[case] = dict(name="flgreedy_walk", route="cuda",
+                         source="src/repro_torch/csrc/flgreedy_walk.cu",
+                         replaces="none: not a TPU kernel (the reference's "
+                         "XLA while_loop, src/repro/kernels/budgeted_topk/"
+                         "ops.py:244)",
+                         max_abs_err=err, ms=ms, plain_ms=plain,
+                         bound_ms=bnd, bound_by=by, library_ms=None,
+                         shape=[s, n, m], wall_ms=wall, warm_ms=warm,
+                         keys_ms=sort_ms)
+    if WALK_SYNCS["flgreedy_walk"] - syncs_after == 0:
+        fail("the plain walk made no host sync (its count is broken)")
+    row = out[P3_CASES[0]]
+    row.pop("keys_ms")
+    return row
+
+
+# (S, N, M, kind): metropolis-1k's shape first, then the non-convex path's
+# and awkward ones; "ties" rounds the Gumbels to integers
+RANDOM_CASES = ((2, 1000, 12, "main"), (2, 50, 3, "nonconvex"),
+                (2, 130, 3, "ties"), (2, 64, 12, "ineligible"),
+                (2, 300, 12, "negative-cost"), (2, 300, 40, "random"),
+                (1, 200, 200, "random"), (1, 1, 1, "random"),
+                (2, 1024, 8, "full"))
+
+
+def check_random_assign(dev):
+    """Random's scan held bitwise (assign, remaining) against its plain
+    version on the same draws, on ``RANDOM_CASES``; timed at
+    metropolis-1k's shape. It reads nothing back to the host."""
+    import torch
+    from repro_torch import random as jr
+    from repro_torch.kernels import common
+    from repro_torch.kernels.random_assign.kernel import random_assign_kernel
+    from repro_torch.kernels.random_assign.ops import random_draws
+    from repro_torch.kernels.random_assign.ref import random_assign_ref
+    picks = []
+    for i, (s, n, m, kind) in enumerate(RANDOM_CASES):
+        v, c, b, e = topk_inputs(dev, s, n, m, 30 + i, kind)
+        order, gum = random_draws(jr.PRNGKey(torch.arange(s, device=dev)
+                                             + 100 * i), n, m)
+        if kind == "ties":
+            gum = torch.round(gum)
+        before = common.LAUNCHES["random_assign"]
+        ka, kr = random_assign_kernel(order, gum, c, b, e)
+        if common.LAUNCHES["random_assign"] != before + 1:
+            fail("random_assign did not count its launch once")
+        ra, rr = random_assign_ref(order, gum, c, b, e)
+        torch.cuda.synchronize()
+        if not (torch.equal(ka, ra)
+                and torch.equal(kr.view(torch.int32), rr.view(torch.int32))):
+            fail(f"random_assign not bitwise at {(s, n, m, kind)}")
+        picks.append(int((ka >= 0).sum(dim=1).max()))
+    print(f"  random_assign: assign and remaining bitwise on "
+          f"{len(RANDOM_CASES)} cases (metropolis-1k's statistics, the "
+          f"non-convex path's, equal Gumbels, all ineligible, negative "
+          f"costs, M = 40 and 200 (2 and 7 ESs a lane), (1, 1, 1), 95% "
+          f"eligible); picks in the larger seed {picks}")
+    ptxas_lines("random_assign")
+    s, n, m, kind = RANDOM_CASES[0]
+    v, c, b, e = topk_inputs(dev, s, n, m, 0, kind)
+    order, gum = random_draws(jr.PRNGKey(torch.arange(s, device=dev)), n, m)
+    call = lambda: random_assign_kernel(order, gum, c, b, e)
+    ka, kr = call()
+    ra, rr = random_assign_ref(order, gum, c, b, e)
+    err = float(max((ka - ra).abs().max().item(),
+                    (kr - rr).abs().max().item()))
+    ms, warm = device_ms(call), device_ms(call, cold=False)
+    wall = cuda_ms(call, 200)
+    plain = cuda_ms(lambda: random_assign_ref(order, gum, c, b, e), iters=3,
+                    warmup=1)
+    # bytes: order, gumbel, costs, budgets, eligible in; assign, remaining
+    # out; a compare a (client, ES)
+    nbytes = 4 * s * n + 4 * s * n * m + 4 * s * n + 4 * s * m \
+        + s * n * m + 4 * s * n + 4 * s * m
+    bnd, by = bound_ms(nbytes, s * n * m)
+    small = topk_inputs(dev, 2, 50, 3, 0, "nonconvex")
+    so, sg = random_draws(jr.PRNGKey(torch.arange(2, device=dev)), 50, 3)
+    small_ms = device_ms(lambda: random_assign_kernel(so, sg, small[1],
+                                                      small[2], small[3]))
+    print(f"    at {[s, n, m]}: kernel {ms * 1e3:.2f} us cold, "
+          f"{warm * 1e3:.2f} warm, {wall * 1e3:.2f} a call; at the "
+          f"non-convex path's [2, 50, 3] {small_ms * 1e3:.2f} us cold; "
+          f"plain {plain * 1e3:.2f} us")
+    return dict(name="random_assign", route="cuda",
+                source="src/repro_torch/csrc/random_assign.cu",
+                replaces="none: not a TPU kernel (the reference's XLA "
+                "lax.scan, src/repro/policies/solvers.py:148)",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+                bound_by=by, library_ms=None, shape=[s, n, m],
+                wall_ms=wall, warm_ms=warm)
 
 
 def masked_aggregate_inputs(dev, r, s, d, seed, kind="random",
@@ -653,8 +905,51 @@ def masked_aggregate_main(dev, counts, d, worst):
 
 # -- phase 4: the main path ---------------------------------------------------
 
+POLICIES = ("cocs", "oracle", "random")
+# the kernels each policy's selection launches once a round
+SELECT_KERNELS = {"cocs": ("budgeted_topk",), "oracle": ("budgeted_topk",),
+                  "random": ("random_assign",)}
+P3_KERNELS = ("budgeted_topk", "flgreedy_walk")
+
+
+def spend_within_budget(env, dev, seeds, sel, what):
+    """Replays the (deterministic) environment for the per-round costs
+    and holds every selection to eligibility and its ES's budget; these
+    launches come after the counts were read. Returns the largest
+    spend."""
+    import numpy as np
+    import torch
+    from repro_torch.sim.core import init_statics, round_batch
+    m, budget = env.cfg.num_edge_servers, env.cfg.budget
+    seed_t = torch.as_tensor(seeds, device=dev)
+    statics = init_statics(env.spec, seed_t)
+    pos = statics.pos0
+    worst = 0.0
+    for t in range(sel.shape[1]):
+        pos, rd = round_batch(env.spec, seed_t, statics, pos, t)
+        costs = rd.costs.cpu().numpy().astype(np.float64)
+        elig = rd.eligible.cpu().numpy()
+        for si in range(len(seeds)):
+            a = sel[si, t]
+            chosen = np.nonzero(a >= 0)[0]
+            if not elig[si, chosen, a[chosen]].all():
+                fail(f"{what}: seed {si} round {t}: an ineligible pair "
+                     f"selected")
+            spend = np.bincount(a[chosen], weights=costs[si, chosen],
+                                minlength=m)
+            worst = max(worst, float(spend.max()))
+            if (spend > budget + 1e-6).any():
+                fail(f"{what}: seed {si} round {t}: ES spend "
+                     f"{spend.max()} over budget {budget}")
+    return worst
+
+
 def main_path(dev, profile: bool, preset: str = "metropolis-1k",
               horizon: int = 20, samples: int = 200):
+    """Each policy's run on the HFL main path, with the launch counts set
+    to 0 just before it and read just after. Returns the launches summed
+    over the three runs, rounds/s by policy, the per-round cohorts of
+    every run (the slots B3 aggregated) and B3's width."""
     import numpy as np
     import torch
     from repro_torch.data.federated import FederatedDataset
@@ -663,86 +958,75 @@ def main_path(dev, profile: bool, preset: str = "metropolis-1k",
     from repro_torch.kernels.budgeted_topk import ops as topk_ops
     from repro_torch.models.logistic import init_logreg
     from repro_torch.sim import spec as simspec
-    from repro_torch.sim.core import init_statics, round_batch
 
     env = simspec.make(preset)
     seeds = (0, 1)
-    data = FederatedDataset.synthetic(env.cfg.num_clients, kind="mnist",
+    m, n = env.cfg.num_edge_servers, env.cfg.num_clients
+    data = FederatedDataset.synthetic(n, kind="mnist",
                                       samples_per_client=samples, seed=0)
     data.stacked(dev)
     torch.cuda.synchronize()
-    common.reset_launches()
-    topk_ops.WALK_SYNCS["greedy_walk"] = 0
-    t0 = time.perf_counter()
-    res = sweep_experiments(("cocs",), f"device:{preset}", seeds=seeds,
-                            horizon=horizon, eval_every=5, data=data,
-                            device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(common.LAUNCHES)
-    syncs = topk_ops.WALK_SYNCS["greedy_walk"]
-    if launches["context_pairwise"] != horizon:
-        fail(f"context_pairwise launched {launches['context_pairwise']} "
-             f"times in {horizon} rounds")
-    if launches["budgeted_topk"] != horizon:
-        fail(f"budgeted_topk launched {launches['budgeted_topk']} times "
-             f"in {horizon} rounds")
-    if syncs != 0:
-        fail(f"the budget walk synced with the host {syncs} times on CUDA")
-    if launches["masked_aggregate"] < horizon:
-        fail(f"masked_aggregate launched {launches['masked_aggregate']} "
-             f"times in {horizon} rounds")
-    sel = res.selections["cocs"]
-    m, n = env.cfg.num_edge_servers, env.cfg.num_clients
-    if sel.shape != (len(seeds), horizon, n):
-        fail(f"selections shape {sel.shape}")
-    if sel.min() < -1 or sel.max() >= m:
-        fail("an assignment names an ES that does not exist")
-    # budget feasibility: replay the (deterministic) environment for the
-    # per-round costs; these launches come after the counts were read
-    seed_t = torch.as_tensor(seeds, device=dev)
-    statics = init_statics(env.spec, seed_t)
-    pos = statics.pos0
-    worst_spend = 0.0
-    for t in range(horizon):
-        pos, rd = round_batch(env.spec, seed_t, statics, pos, t)
-        costs = rd.costs.cpu().numpy().astype(np.float64)
-        elig = rd.eligible.cpu().numpy()
-        for si in range(len(seeds)):
-            a = sel[si, t]
-            chosen = np.nonzero(a >= 0)[0]
-            if not elig[si, chosen, a[chosen]].all():
-                fail(f"seed {si} round {t}: an ineligible pair selected")
-            spend = np.bincount(a[chosen], weights=costs[si, chosen],
-                                minlength=m)
-            worst_spend = max(worst_spend, float(spend.max()))
-            if (spend > env.cfg.budget + 1e-6).any():
-                fail(f"seed {si} round {t}: ES spend {spend.max()} over "
-                     f"budget {env.cfg.budget}")
-    acc, loss = res.accuracy["cocs"], res.loss["cocs"]
-    if not (np.isfinite(acc).all() and np.isfinite(loss).all()):
-        fail("non-finite accuracy or loss")
-    if not np.isfinite(res.utilities["cocs"]).all():
-        fail("non-finite utilities")
-    print(f"  launches in {horizon} rounds: {launches}")
-    print(f"  no client assigned twice (one ES per client); max ES spend "
-          f"{worst_spend:.6f} <= budget {env.cfg.budget}")
-    print(f"  wall {wall:.3f} s = {horizon / wall:.3f} rounds/s "
-          f"({len(seeds)} seeds x {n} clients x {m} ES, logreg 784-d)")
-    print(f"  final accuracy per seed {acc[:, -1].tolist()}; loss "
-          f"{loss[:, -1].tolist()}; mean participants per round "
-          f"{res.participants['cocs'].mean():.3f}")
-    print(f"  greedy walk host syncs: {syncs} ({syncs / horizon:.1f} per "
-          f"round)")
+    total = {k: 0 for k in common.LAUNCHES}
+    rps, counts = {}, []
+    for pol in POLICIES:
+        common.reset_launches()
+        for k in topk_ops.WALK_SYNCS:
+            topk_ops.WALK_SYNCS[k] = 0
+        t0 = time.perf_counter()
+        res = sweep_experiments((pol,), f"device:{preset}", seeds=seeds,
+                                horizon=horizon, eval_every=5, data=data,
+                                device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(common.LAUNCHES)
+        syncs = dict(topk_ops.WALK_SYNCS)
+        for k, v in launches.items():
+            total[k] += v
+        if launches["context_pairwise"] != horizon:
+            fail(f"{pol}: context_pairwise launched "
+                 f"{launches['context_pairwise']} times in {horizon} rounds")
+        for k in ("budgeted_topk", "random_assign", "flgreedy_walk"):
+            want = horizon if k in SELECT_KERNELS[pol] else 0
+            if launches[k] != want:
+                fail(f"{pol}: {k} launched {launches[k]} times in "
+                     f"{horizon} rounds, expected {want}")
+        if any(syncs.values()):
+            fail(f"{pol}: a selection walk synced with the host on CUDA: "
+                 f"{syncs}")
+        if launches["masked_aggregate"] < horizon:
+            fail(f"{pol}: masked_aggregate launched "
+                 f"{launches['masked_aggregate']} times in {horizon} "
+                 f"rounds")
+        sel = res.selections[pol]
+        if sel.shape != (len(seeds), horizon, n):
+            fail(f"{pol}: selections shape {sel.shape}")
+        if sel.min() < -1 or sel.max() >= m:
+            fail(f"{pol}: an assignment names an ES that does not exist")
+        worst = spend_within_budget(env, dev, seeds, sel, pol)
+        acc, loss = res.accuracy[pol], res.loss[pol]
+        if not (np.isfinite(acc).all() and np.isfinite(loss).all()):
+            fail(f"{pol}: non-finite accuracy or loss")
+        if not np.isfinite(res.utilities[pol]).all():
+            fail(f"{pol}: non-finite utilities")
+        rps[pol] = horizon / wall
+        print(f"  {pol}: launches in {horizon} rounds "
+              f"{ {k: v for k, v in launches.items() if v} }; walk host "
+              f"syncs {syncs}; max ES spend {worst:.6f} <= budget "
+              f"{env.cfg.budget}")
+        print(f"    wall {wall:.3f} s = {rps[pol]:.3f} rounds/s "
+              f"({len(seeds)} seeds x {n} clients x {m} ES, logreg 784-d); "
+              f"final accuracy per seed {acc[:, -1].tolist()}; loss "
+              f"{loss[:, -1].tolist()}; mean participants a round "
+              f"{res.participants[pol].mean():.3f}")
+        # each round's cohort per (seed, ES) row: the slots B3 aggregated
+        counts.append(np.stack([np.concatenate(
+            [np.bincount(sel[si, t][sel[si, t] >= 0], minlength=m)
+             for si in range(len(seeds))]) for t in range(horizon)]))
     if profile:
-        profile_main_path(dev, data, wall / horizon)
-    # each round's cohort per (seed, ES) row: the slots B3 aggregated
-    counts = np.stack([np.concatenate(
-        [np.bincount(sel[si, t][sel[si, t] >= 0], minlength=m)
-         for si in range(len(seeds))]) for t in range(horizon)])
+        profile_main_path(dev, data, 1.0 / rps["cocs"])
     nf = int(np.prod(data.test_x.shape[1:]))
     d = sum(v.numel() for v in init_logreg(num_features=nf).values())
-    return launches, horizon / wall, counts, d
+    return total, rps, np.concatenate(counts), d
 
 
 def profile_main_path(dev, data, round_s: float):
@@ -797,21 +1081,287 @@ def profile_main_path(dev, data, round_s: float):
 # -- phase 5: CPU against CUDA -------------------------------------------------
 
 def cpu_vs_cuda(dev):
+    """The HFL port on the CPU against the port on CUDA, each policy on
+    ``paper`` and ``flash-crowd``, 2 seeds x 10 rounds."""
     import numpy as np
     from repro_torch.experiment.sweep import sweep_experiments
     kw = dict(seeds=(0, 1), horizon=10, eval_every=5, slots_per_es=11)
-    a = sweep_experiments(("cocs",), "device:paper", device="cpu", **kw)
-    b = sweep_experiments(("cocs",), "device:paper", device=dev, **kw)
-    sa, sb = a.selections["cocs"], b.selections["cocs"]
-    rows_diff = int((sa != sb).any(axis=-1).sum())
-    n_rows = sa.shape[0] * sa.shape[1]
-    gap = float(np.abs(a.accuracy["cocs"] - b.accuracy["cocs"]).max())
-    print(f"  paper, 2 seeds x 10 rounds: {rows_diff} of {n_rows} "
-          f"selection rows differ; max accuracy gap {gap:.3e}")
-    if rows_diff > 0.01 * n_rows:
-        fail(f"{rows_diff} of {n_rows} selection rows differ CPU vs CUDA")
-    if rows_diff == 0 and gap > 1e-3:
-        fail(f"accuracy gap {gap} with identical selections")
+    out = {}
+    for preset in ("paper", "flash-crowd"):
+        a = sweep_experiments(POLICIES, f"device:{preset}", device="cpu",
+                              **kw)
+        b = sweep_experiments(POLICIES, f"device:{preset}", device=dev,
+                              **kw)
+        for pol in POLICIES:
+            sa, sb = a.selections[pol], b.selections[pol]
+            rows_diff = int((sa != sb).any(axis=-1).sum())
+            n_rows = sa.shape[0] * sa.shape[1]
+            gap = float(np.abs(a.accuracy[pol] - b.accuracy[pol]).max())
+            lgap = float(np.abs(a.loss[pol] - b.loss[pol]).max())
+            print(f"  {preset}/{pol}, 2 seeds x 10 rounds: {rows_diff} of "
+                  f"{n_rows} selection rows differ; max accuracy gap "
+                  f"{gap:.3e}, loss gap {lgap:.3e}")
+            if rows_diff > 0.01 * n_rows:
+                fail(f"{preset}/{pol}: {rows_diff} of {n_rows} selection "
+                     f"rows differ CPU vs CUDA")
+            if rows_diff == 0 and gap > 1e-3:
+                fail(f"{preset}/{pol}: accuracy gap {gap} with identical "
+                     f"selections")
+            out[f"{preset}/{pol}"] = dict(rows_differ=rows_diff,
+                                          accuracy_gap=gap, loss_gap=lgap)
+    return out
+
+
+# -- phase 14: the non-convex path -------------------------------------------
+
+# CIFAR10_NONCONVEX at the paper's 50 clients and 3 ES, the CNN at 32x32x3
+# (1,756,426 parameters), 2 seeds. The configuration's own lr = 0.1
+# diverges (reference caveat R11): that run is held to its selections and
+# host syncs only. The gated run changes lr alone, to 0.005.
+NONCONVEX_SEEDS = (0, 1)
+NONCONVEX_DIVERGED = (10, 5)        # horizon, eval_every at lr = 0.1
+NONCONVEX_GATED = (60, 5)           # at lr = 0.005: an eval at each sync
+# seed 0 on the CPU and on CUDA, one round: later rounds amplify float32
+# differences (the packages' 10 local steps already move the test loss
+# by 7.5e-4 relative, tests/test_torch_cnn.py's R11 pin), and the
+# accuracy, near chance on this data, flips with the smallest margins
+NONCONVEX_CPU = (1, 1)
+GATED_LR = 0.005
+
+
+def train_loss_ends(res, pol):
+    """Local SGD's loss at its first and last step, mean over a round's
+    filled slots, at the (seed, round)s that selected anyone: (S, R, 2)
+    with R the fewest such rounds of a seed."""
+    import numpy as np
+    tl, sel = res.train_loss[pol], res.selections[pol]
+    keep = [tl[si][(sel[si] >= 0).any(axis=-1)] for si in range(len(tl))]
+    r = min(len(k) for k in keep)
+    return np.stack([k[:r] for k in keep])
+
+
+def nonconvex_run(dev, env, data, horizon, every, what):
+    """One sweep of the three policies on the CNN with the launch counts
+    and walk syncs set to 0 just before it and read just after; holds
+    the counts, the syncs and every selection's budget."""
+    import torch
+    from repro_torch.experiment.sweep import sweep_experiments
+    from repro_torch.kernels import common
+    from repro_torch.kernels.budgeted_topk import ops as topk_ops
+    common.reset_launches()
+    for k in topk_ops.WALK_SYNCS:
+        topk_ops.WALK_SYNCS[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = sweep_experiments(POLICIES, env, seeds=NONCONVEX_SEEDS,
+                            horizon=horizon, eval_every=every,
+                            model_kind="cnn", data=data, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(common.LAUNCHES)
+    syncs = dict(topk_ops.WALK_SYNCS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {"context_pairwise": 3 * horizon, "budgeted_topk": 2 * horizon,
+            "flgreedy_walk": 2 * horizon, "random_assign": horizon}
+    for k, v in want.items():
+        if launches[k] != v:
+            fail(f"{what}: {k} launched {launches[k]} times in {horizon} "
+                 f"rounds of 3 policies, expected {v}")
+    if launches["masked_aggregate"] < 3 * horizon:
+        fail(f"{what}: masked_aggregate launched "
+             f"{launches['masked_aggregate']} times")
+    if any(syncs.values()):
+        fail(f"{what}: a selection walk synced with the host: {syncs}")
+    worst = max(spend_within_budget(env, dev, NONCONVEX_SEEDS,
+                                    res.selections[p], f"{what} {p}")
+                for p in POLICIES)
+    print(f"  {what}: {horizon} rounds x 3 policies in {wall:.2f} s = "
+          f"{3 * horizon / wall:.3f} policy-rounds/s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; walk host syncs "
+          f"{syncs}; peak device memory {peak:.2f} GiB; max ES spend "
+          f"{worst:.4f} <= budget {env.cfg.budget}")
+    for p in POLICIES:
+        print(f"    {p}: test loss by eval {res.loss[p].tolist()}; "
+              f"accuracy {res.accuracy[p].tolist()}; mean participants a "
+              f"round {res.participants[p].mean():.3f}, utility "
+              f"{res.utilities[p].mean():.4f}")
+    return res, dict(wall_s=wall, policy_rounds_per_s=3 * horizon / wall,
+                     peak_gib=peak, launches=launches)
+
+
+def profile_nonconvex(dev, env, data):
+    """Five rounds of COCS on the gated non-convex path (2 seeds) under
+    torch.profiler, after an unprofiled run of the same: device time by
+    kernel name, host time by stage, the device's busy share (kernel
+    time over the unprofiled wall), and the hand kernels' time a launch
+    inside the path."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.experiment.sweep import sweep_experiments
+    kw = dict(seeds=NONCONVEX_SEEDS, horizon=5, eval_every=5,
+              model_kind="cnn", data=data, device=dev)
+    sweep_experiments(("cocs",), env, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sweep_experiments(("cocs",), env, **kw)
+    torch.cuda.synchronize()
+    round_s = (time.perf_counter() - t0) / 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sweep_experiments(("cocs",), env, **kw)
+        torch.cuda.synchronize()
+        traced_s = (time.perf_counter() - t0) / 5
+    rows = kernel_rows(prof)
+    dev_total = sum(e.self_device_time_total for e in rows)
+    # the trace slows cuDNN's convolutions, so the busy share is taken
+    # against the traced wall, beside the untraced one
+    print(f"  profile (cocs, 5 rounds, 2 seeds, one eval): "
+          f"{round_s * 1e3:.1f} ms a round untraced, {traced_s * 1e3:.1f} "
+          f"traced; summed kernel time {dev_total / 5 / 1e3:.1f} ms a "
+          f"round; device busy share {dev_total / 5 / (traced_s * 1e6):.3f} "
+          f"of the traced wall")
+    stages = [e for e in prof.key_averages() if e.key.startswith("round.")
+              and e.device_type == DeviceType.CPU]
+    for e in sorted(stages, key=lambda e: -e.cpu_time_total):
+        print(f"    stage {e.key:16s} {e.cpu_time_total / 1e3 / 5:9.3f} ms "
+              f"host a round")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x"
+              f"  {e.key[:90]}")
+    for name in ("context_pairwise", "budgeted_topk", "flgreedy_walk",
+                 "masked_aggregate"):
+        hand = [e for e in rows if name in e.key]
+        n = sum(e.count for e in hand)
+        if n:
+            print(f"    {name} in the path: {n} launches, "
+                  f"{sum(e.self_device_time_total for e in hand) / n:.2f} "
+                  f"us a launch")
+
+
+def nonconvex_path(dev, b3_worst, profile: bool = False):
+    """Phase 14: the non-convex path twice on CUDA (CIFAR10_NONCONVEX as
+    configured, then at lr = 0.005), seed 0 on the CPU against CUDA, and
+    B3 at the CNN's width at the capacities the gated run used."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs.paper_hfl import CIFAR10_NONCONVEX
+    from repro_torch.data.federated import FederatedDataset
+    import torch
+    from repro_torch.experiment.sweep import sweep_experiments
+    from repro_torch.models.logistic import init_cnn
+    from repro_torch.sim import spec as simspec
+    data = FederatedDataset.synthetic(50, kind="cifar", seed=0)
+    data.stacked(dev)
+    cfg = CIFAR10_NONCONVEX
+    gated_cfg = dataclasses.replace(cfg, lr=GATED_LR)
+    out = {}
+    env = simspec.make("paper", cfg)
+    h, e = NONCONVEX_DIVERGED
+    div, out["as_configured"] = nonconvex_run(
+        dev, env, data, h, e, f"{cfg.name} as configured (lr {cfg.lr})")
+    bad = {p: int((~np.isfinite(div.loss[p])).sum()) for p in POLICIES}
+    rose = {p: int((~(train_loss_ends(div, p)[..., 1]
+                      < train_loss_ends(div, p)[..., 0])).sum())
+            for p in POLICIES}
+    print(f"    R11: at the configuration's lr = {cfg.lr} the CNN's local "
+          f"SGD diverges on the reference too (ROADMAP, reference caveat "
+          f"R11); non-finite test losses by policy {bad} of "
+          f"{div.loss['cocs'].size} evals each; rounds where local SGD "
+          f"did not lower the training loss {rose}. Gated here: "
+          f"launches, host syncs, budgets, selections against the CPU; "
+          f"not the loss")
+    out["as_configured"]["nonfinite_loss_evals"] = bad
+    genv = simspec.make("paper", gated_cfg)
+    h, e = NONCONVEX_GATED
+    res, out["gated"] = nonconvex_run(
+        dev, genv, data, h, e, f"{cfg.name} with one change, lr = "
+        f"{GATED_LR}")
+    fell = {}
+    for p in POLICIES:
+        loss = res.loss[p]
+        if not np.isfinite(loss).all():
+            fail(f"lr {GATED_LR} {p}: a non-finite test loss {loss}")
+        tl = train_loss_ends(res, p)
+        if not np.isfinite(tl).all():
+            fail(f"lr {GATED_LR} {p}: a non-finite local training loss")
+        for si in range(tl.shape[0]):
+            first, last = tl[si, :, 0].mean(), tl[si, :, 1].mean()
+            if not last < first:
+                fail(f"lr {GATED_LR} {p} seed {si}: local SGD did not "
+                     f"lower the training loss (mean over rounds {first} "
+                     f"at the first step, {last} at the last)")
+        fell[p] = (int((tl[..., 1] < tl[..., 0]).sum()), int(tl[..., 0].size))
+    tests = {p: (float(res.loss[p][:, 0].mean()),
+                 float(res.loss[p][:, -1].mean())) for p in POLICIES}
+    print(f"    local SGD lowered the training loss in {fell} (rounds "
+          f"where it fell, of rounds with a selection); the test loss, "
+          f"mean over seeds, first and last eval {tests}: not gated, it "
+          f"shows no trend on this data (accuracy stays near 0.1)")
+    out["gated"]["train_loss_fell"] = fell
+    out["gated"]["loss"] = {p: res.loss[p].tolist() for p in POLICIES}
+    if profile:
+        profile_nonconvex(dev, genv, data)
+    out["gated"]["accuracy"] = {p: res.accuracy[p].tolist()
+                                for p in POLICIES}
+    # seed 0 on the CPU and on CUDA, same arguments; the policies see no
+    # training output, so their selections are the same at either lr and
+    # are held against both CUDA runs above too
+    h, e = NONCONVEX_CPU
+    kw = dict(seeds=NONCONVEX_SEEDS[:1], horizon=h, eval_every=e,
+              model_kind="cnn", data=data)
+    t0 = time.perf_counter()
+    cpu = sweep_experiments(POLICIES, genv, device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    # cuDNN's deterministic algorithms, so that the CUDA side of the
+    # comparison is the same run to run (its nondeterministic ones move
+    # a test sample or two between runs, tools/nonconvex_losses.py cpu)
+    torch.backends.cudnn.deterministic = True
+    cuda = sweep_experiments(POLICIES, genv, device=dev, **kw)
+    torch.backends.cudnn.deterministic = False
+    n_test = len(data.test_y)
+    correct = lambda r, p: np.rint(r.accuracy[p].astype(np.float64)
+                                   * n_test).astype(np.int64)
+    gaps = {p: dict(accuracy_gap=float(np.abs(correct(cpu, p)
+                                              - correct(cuda, p)).max()
+                                       / n_test),
+                    loss_gap=float(np.abs(cpu.loss[p]
+                                          - cuda.loss[p]).max()),
+                    cpu_correct=correct(cpu, p).tolist(),
+                    cuda_correct=correct(cuda, p).tolist())
+            for p in POLICIES}
+    print(f"  seed 0, {h} round(s), on the CPU ({cpu_s:.1f} s) against "
+          f"CUDA (cuDNN deterministic): test samples classified right of "
+          f"{n_test}, accuracy and loss gaps {gaps}")
+    for p in POLICIES:
+        sc = cpu.selections[p][0]
+        for name, other in (("cuda", cuda.selections[p][0]),
+                            ("gated", res.selections[p][0, :h]),
+                            ("as configured", div.selections[p][0, :h])):
+            if not np.array_equal(sc, other):
+                rows = int((sc != other).any(axis=-1).sum())
+                fail(f"{p}: {rows} of {h} selection rows differ between "
+                     f"the CPU and the CUDA run ({name})")
+        if gaps[p]["accuracy_gap"] > 1e-3:
+            fail(f"lr {GATED_LR} {p}: CPU and CUDA accuracy differ by "
+                 f"{gaps[p]['accuracy_gap']}")
+    print(f"    selection rows equal for all 3 policies, and equal to "
+          f"both CUDA runs' first {h} round(s)")
+    out["cpu_vs_cuda"] = gaps
+    # B3 at the CNN's width, at the capacities the gated run used
+    m = genv.cfg.num_edge_servers
+    counts = np.concatenate([np.stack([np.concatenate(
+        [np.bincount(sel[si, t][sel[si, t] >= 0], minlength=m)
+         for si in range(sel.shape[0])]) for t in range(sel.shape[1])])
+        for sel in (res.selections[p] for p in POLICIES)])
+    d = sum(v.numel() for v in init_cnn(torch.zeros(2, dtype=torch.int64)
+                                        ).values())
+    b3 = masked_aggregate_main(dev, counts, d, b3_worst)
+    out["masked_aggregate"] = {k: b3[k] for k in ("ms", "plain_ms",
+                                                  "library_ms", "bound_ms",
+                                                  "shape")}
+    return out
 
 
 # -- phases 6-7: the serve slice's kernels against their plain versions ------
@@ -1711,20 +2261,23 @@ def main() -> int:
 
     print("phase 3: kernels against their plain versions")
     spec = simspec.make("metropolis-1k").spec
-    rows = [check_context_pairwise(dev, spec), check_budgeted_topk(dev)]
+    rows = [check_context_pairwise(dev, spec), check_budgeted_topk(dev),
+            check_flgreedy_walk(dev), check_random_assign(dev)]
     b3_worst = check_masked_aggregate(dev)
     floor = launch_floor_ms()
     print(f"  launch_floor_us {floor * 1e3:.2f} (torch.cuda._sleep(0), "
           f"timed as the kernels are)")
+    print(f"  device times taken with {TIMED_WITH}")
     for r in rows:
         print_row(r)
 
-    print("phase 4: main path (metropolis-1k, cuda)")
+    print("phase 4: main path (metropolis-1k, cuda, cocs/oracle/random)")
     launches, rps, counts, d = main_path(dev, profile)
     rows.append(masked_aggregate_main(dev, counts, d, b3_worst))
 
-    print("phase 5: port on CPU against port on CUDA")
-    cpu_vs_cuda(dev)
+    print("phase 5: port on CPU against port on CUDA (paper, flash-crowd; "
+          "cocs/oracle/random)")
+    hfl_cpu_vs_cuda = cpu_vs_cuda(dev)
 
     print("phase 6: flash_attention against its plain version")
     rows.append(check_flash_attention(dev))
@@ -1779,15 +2332,26 @@ def main() -> int:
           f"layers (launch.serve.run)")
     serve_rows["mixtral-8x22b"], mlaunch = mixtral_full_width(dev, profile)
 
-    # each kernel's launches on its own main path: B1-B3 the HFL run, B4
-    # the qwen2 serve (the shape its row is timed at; 8 more in mixtral's),
-    # B5 the rwkv6 serve, B6 the mixtral serve
+    print("phase 14: non-convex path (paper, CIFAR10_NONCONVEX, CNN 32x32x3, "
+          "P3; cocs/oracle/random)")
+    nonconvex = nonconvex_path(dev, b3_worst, profile)
+
+    # each kernel's launches on its own main path: B1-B3 and Random's
+    # scan the HFL runs of phase 4 (three policies), P3's walk the gated
+    # non-convex run, B4 the qwen2 serve (the shape its row is timed at;
+    # 8 more in mixtral's), B5 the rwkv6 serve, B6 the mixtral serve
     counts = {**{k: launches[k] for k in ("context_pairwise",
                                           "budgeted_topk",
-                                          "masked_aggregate")},
+                                          "masked_aggregate",
+                                          "random_assign")},
+              "flgreedy_walk":
+                  nonconvex["gated"]["launches"]["flgreedy_walk"],
               "flash_attention": qlaunch["flash_attention"],
               "rwkv6_scan": rlaunch["rwkv6_scan"],
               "moe_router": mlaunch["moe_router"]}
+    for k, v in counts.items():
+        if v <= 0:
+            fail(f"{k} was launched no time on its main path")
     print("kernels: " + " ".join(f"{k}={v}" for k, v in counts.items()))
     for r in rows:
         r["launches"] = counts[r["name"]]
@@ -1797,8 +2361,13 @@ def main() -> int:
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - START:.1f} s")
     print(card)
+    for r in nonconvex.values():
+        r.pop("launches", None)
     print(json.dumps({"kernels": rows, "launch_floor_us": floor * 1e3,
-                      "rounds_per_s": rps, "serve": serve_rows}))
+                      "device_times_taken_with": TIMED_WITH,
+                      "rounds_per_s": rps, "hfl_cpu_vs_cuda":
+                      hfl_cpu_vs_cuda, "nonconvex": nonconvex,
+                      "serve": serve_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,6 @@
-"""The paper's own HFL experiment configuration (Table I), and the
-1000-client cohort the device simulator runs.
+"""The paper's own HFL experiment configurations (Table I): the convex
+setting, the non-convex one (CNN, sqrt utility) and the 1000-client
+cohorts the device simulator runs, by name in ``CONFIGS``.
 
 A copy of the reference's ``configs/paper_hfl.py`` values (the port
 imports nothing of the JAX package). Datasets are synthetic with the
@@ -55,3 +56,25 @@ BURSTY_1K = HFLExperimentConfig(
     num_edge_servers=8,
     budget=8.0,
 )
+
+# the non-convex setting (Figs. 5-7): the CNN's larger updates and
+# workload, a longer deadline, the sqrt (P3) utility. lr = 0.1 is the
+# reference's; at it the CNN's local SGD diverges on the synthetic data
+# (ROADMAP, reference caveat R11)
+CIFAR10_NONCONVEX = HFLExperimentConfig(
+    name="cifar10-nonconvex",
+    update_bits=18.7e6,
+    workload=28.3e6,
+    deadline_s=20.0,
+    budget=40.0,
+    bandwidth_low=2.0e6,
+    bandwidth_high=4.0e6,
+    compute_low=8.0e6,
+    compute_high=15.0e6,
+    local_epochs=5,
+    lr=0.1,
+    utility="sqrt",
+)
+
+CONFIGS = {c.name: c for c in (MNIST_CONVEX, CIFAR10_NONCONVEX,
+                               METROPOLIS_1K, BURSTY_1K)}

@@ -62,6 +62,14 @@
 //      same ES, so the lanes resolve in registers on masks of the lanes
 //      sharing each, several picks a round (see walk).
 //   4. assign is written as picks happen (-1 first), remaining at the end.
+// The keys-only launch (budgeted_topk_keys_launch) is the same kernel
+// without the walk, for P3, whose walk is flgreedy_walk.cu: step 1 keeps
+// every pair of density > -inf (eligible, not NaN; P3 rescores them all),
+// the key's high word is an order-preserving image of any float (-0.0
+// taken as +0.0), and after step 2 the seed's sorted keys and their count
+// are written out, zeros after them: the reference's build_segments
+// (src/repro/kernels/budgeted_topk/ops.py, as flgreedy_topk at :315 calls
+// it) over one segment a seed.
 // Built with --fmad=false; nothing here would contract, and the flag keeps
 // it so. No allocation, no synchronisation; PyTorch's current stream.
 #include <cuda_runtime.h>
@@ -305,12 +313,27 @@ __device__ void walk(const u64* keys, int count, const float* s_cost,
   }
 }
 
+// The high word of a keys-only key: unsigned, ordered as the floats are.
+__device__ __forceinline__ unsigned order_key(float d) {
+  const unsigned u = __float_as_uint(d + 0.f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+template <int E>
+__device__ void write_keys(const u64* keys, int count, int cap,
+                           u64* __restrict__ out) {
+  for (int q = threadIdx.x; q < cap; q += kThreads)
+    out[q] = q < count ? keys[phys<E>(q)] : 0ull;
+}
+
+template <bool kKeys>
 __global__ void __launch_bounds__(kThreads, 1)
 budgeted_topk_kernel(const float* __restrict__ values,
                      const float* __restrict__ costs,
                      const float* __restrict__ budgets,
                      const unsigned char* __restrict__ eligible,
                      int* __restrict__ assign, float* __restrict__ remaining,
+                     u64* __restrict__ keys_out, int* __restrict__ counts,
                      int n, int m, int key_cap) {
   extern __shared__ __align__(16) unsigned char smem[];
   u64* keys = reinterpret_cast<u64*>(smem);
@@ -324,7 +347,7 @@ budgeted_topk_kernel(const float* __restrict__ values,
   const int nm = n * m;
   const float* vals = values + seed * nm;
   const unsigned char* elig = eligible + seed * nm;
-  int* asg = assign + seed * n;
+  int* asg = kKeys ? nullptr : assign + seed * n;
 
   // the pair loads first: their latency overlaps the set-up below
   float vv[kPer];
@@ -338,10 +361,12 @@ budgeted_topk_kernel(const float* __restrict__ values,
   if (tid == 0) s_count = 0;
   for (int i = tid; i < n; i += kThreads) {
     s_cost[i] = costs[seed * n + i];
-    asg[i] = -1;
+    if (!kKeys) asg[i] = -1;
   }
-  for (int i = tid; i < m; i += kThreads) s_rem[i] = budgets[seed * m + i];
-  for (int i = tid; i < (n + 31) / 32; i += kThreads) s_taken[i] = 0u;
+  if (!kKeys) {
+    for (int i = tid; i < m; i += kThreads) s_rem[i] = budgets[seed * m + i];
+    for (int i = tid; i < (n + 31) / 32; i += kThreads) s_taken[i] = 0u;
+  }
   __syncthreads();
 
   // 1. density > 0, compacted into keys[0 .. count): a first pass computes
@@ -361,7 +386,7 @@ budgeted_topk_kernel(const float* __restrict__ values,
       if (ee[i]) {                           // i * 1024 + tid < nm
         const float c = s_cost[client];
         vv[i] = vv[i] / (c < kEps ? kEps : c);
-        keep = vv[i] > 0.f;
+        keep = kKeys ? vv[i] > __uint_as_float(0xff800000u) : vv[i] > 0.f;
       }
       keepbits |= (unsigned)keep << i;
       total += __popc(__ballot_sync(kFull, keep));
@@ -384,7 +409,8 @@ budgeted_topk_kernel(const float* __restrict__ values,
       const unsigned b = __ballot_sync(kFull, keep);
       if (keep)
         keys[at + __popc(b & ((1u << lane) - 1u))] =
-            ((u64)__float_as_uint(vv[i]) << 32) |
+            ((u64)(kKeys ? order_key(vv[i]) : __float_as_uint(vv[i]))
+             << 32) |
             (((unsigned)client << 14) | (unsigned)es);
       at += __popc(b);
       client += step_c;
@@ -401,6 +427,18 @@ budgeted_topk_kernel(const float* __restrict__ values,
   // 2-3. sort, then walk (block-uniform branches)
   int p = kMinSort;
   while (p < count) p <<= 1;
+  if (kKeys) {
+    u64* out = keys_out + seed * key_cap;
+    if (tid == 0) counts[seed] = count;
+    if (p > 8192) {
+      sort_desc<16>(keys, count, p);
+      write_keys<16>(keys, count, key_cap, out);
+    } else {
+      if (count > 0) sort_desc<8>(keys, count, p);
+      write_keys<8>(keys, count, key_cap, out);
+    }
+    return;
+  }
   // phase-cost cut begin: sort-walk
   if (p > 8192) {
     sort_desc<16>(keys, count, p);
@@ -446,12 +484,40 @@ extern "C" int budgeted_topk_launch(const float* values, const float* costs,
   const size_t smem = (size_t)budgeted_topk_smem(n, m);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        budgeted_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        budgeted_topk_kernel<false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  budgeted_topk_kernel<<<s, kThreads, smem, (cudaStream_t)stream>>>(
-      values, costs, budgets, eligible, assign, remaining, n, m,
+  budgeted_topk_kernel<false><<<s, kThreads, smem, (cudaStream_t)stream>>>(
+      values, costs, budgets, eligible, assign, remaining, nullptr, nullptr,
+      n, m, (int)key_capacity(n, m));
+  return (int)cudaGetLastError();
+}
+
+// Slots a seed of the keys-only output (a power of two >= N * M, >= 256).
+extern "C" int budgeted_topk_key_capacity(int n, int m) {
+  if (n < 0 || m < 0 || (long long)n * m > kMaxPairs) return 0;
+  return (int)key_capacity(n, m);
+}
+
+extern "C" int budgeted_topk_keys_launch(const float* values,
+                                         const float* costs,
+                                         const unsigned char* eligible,
+                                         unsigned long long* keys,
+                                         int* counts, int s, int n, int m,
+                                         void* stream) {
+  if (n < 0 || m < 0 || (long long)n * m > kMaxPairs)
+    return (int)cudaErrorInvalidValue;
+  if (s == 0) return 0;
+  const size_t smem = (size_t)budgeted_topk_smem(n, m);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        budgeted_topk_kernel<true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  budgeted_topk_kernel<true><<<s, kThreads, smem, (cudaStream_t)stream>>>(
+      values, costs, nullptr, eligible, nullptr, nullptr, keys, counts, n, m,
       (int)key_capacity(n, m));
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,13 @@
 """``sweep_experiments``: whole multi-seed HFL experiments on a device
 environment, one training block per eval interval.
 
-Every seed gets its own realized environment (``sim``), model init,
-sampler stream (``PRNGKey(seed + 11)``) and policy state, over one shared
-dataset (``seed=0``), as the reference's ``sweep_experiments``; the seed
-axis is a batch dimension throughout.
+Every seed gets its own realized environment (``sim``), model init
+(``PRNGKey(seed)``; logreg starts at zero), sampler stream
+(``PRNGKey(seed + 11)``) and policy state, over one shared dataset
+(``seed=0``), as the reference's ``sweep_experiments``; the seed axis is
+a batch dimension throughout. Policies: ``cocs``, ``oracle``, ``random``;
+models: ``logreg`` (784-d "mnist" data) and ``cnn`` (32x32x3 "cifar"
+data).
 """
 from __future__ import annotations
 
@@ -19,8 +22,9 @@ from repro_torch.data.federated import FederatedDataset, StackedClients
 from repro_torch.experiment.fused import block_device
 from repro_torch.fed.batched import BatchedRoundSpec
 from repro_torch.kernels.common import resolve_device
-from repro_torch.models.logistic import init_logreg
+from repro_torch.models.logistic import init_cnn, init_logreg
 from repro_torch.policies.base import FunctionalPolicy, PolicySpec
+from repro_torch.policies.baselines import Oracle, Random
 from repro_torch.policies.cocs import COCS
 from repro_torch.sim import spec as simspec
 from repro_torch.sim.core import init_statics
@@ -38,6 +42,9 @@ class SweepResult:
     participants: Dict[str, np.ndarray]          # (S, T)
     selections: Dict[str, np.ndarray]            # (S, T, N)
     explored: Dict[str, np.ndarray] = field(default_factory=dict)
+    # the port's own addition: local SGD's loss at its first and last
+    # step, the mean over each round's filled slots (S, T, 2)
+    train_loss: Dict[str, np.ndarray] = field(default_factory=dict)
 
 
 def _block_bounds(horizon: int, eval_every: int) -> List[int]:
@@ -64,24 +71,35 @@ def prepare_training(cfg, model_kind: str, batch_size: int,
                      data: Optional[FederatedDataset],
                      seeds: Sequence[int], device) -> TrainingSetup:
     """Training state shared by every seed: the synthetic dataset
-    (``seed=0``) unless given, stacked shards on ``device``, zero logreg
-    edge models, sampler keys ``PRNGKey(seed + 11)`` and the round
-    spec."""
-    if model_kind != "logreg":
-        raise NotImplementedError(
-            f"model {model_kind!r} is not ported yet; the slice runs "
-            "'logreg' (ROADMAP, queue A)")
-    data = data or FederatedDataset.synthetic(cfg.num_clients, kind="mnist",
+    (``seed=0``; "mnist" for logreg, "cifar" for the CNN) unless given,
+    stacked shards on ``device``, per-seed edge models (logreg at zero,
+    the CNN from ``init_cnn(PRNGKey(seed))`` at the data's shape),
+    sampler keys ``PRNGKey(seed + 11)`` and the round spec."""
+    if model_kind not in ("logreg", "cnn"):
+        raise ValueError(f"unknown model kind {model_kind!r}; the port "
+                         "has 'logreg' and 'cnn'")
+    kind = "mnist" if model_kind == "logreg" else "cifar"
+    data = data or FederatedDataset.synthetic(cfg.num_clients, kind=kind,
                                               seed=0)
     stacked = data.stacked(device)
     batch = int(min(batch_size, int(stacked.sizes.min())))
     steps = cfg.local_epochs * batches_per_epoch
-    nf = int(np.prod(data.test_x.shape[1:]))
-    p0 = init_logreg(num_features=nf, device=device)
     s, m = len(seeds), cfg.num_edge_servers
-    edge = {k: v.expand((s, m) + v.shape).clone() for k, v in p0.items()}
+    if model_kind == "logreg":
+        nf = int(np.prod(data.test_x.shape[1:]))
+        p0 = init_logreg(num_features=nf, device=device)
+        edge = {k: v.expand((s, m) + v.shape).clone()
+                for k, v in p0.items()}
+    else:
+        h, w, c = data.test_x.shape[1:]
+        inits = [init_cnn(jr.PRNGKey(int(x), device), h, w, c)
+                 for x in seeds]
+        edge = {k: torch.stack([p[k] for p in inits])[:, None]
+                .expand((s, m) + inits[0][k].shape).clone()
+                for k in inits[0]}
     spec = BatchedRoundSpec(num_edge_servers=m, steps=steps, lr=cfg.lr,
-                            z_min=cfg.min_clients_z, t_es=cfg.t_es)
+                            z_min=cfg.min_clients_z, t_es=cfg.t_es,
+                            model=model_kind)
     base_keys = jr.PRNGKey(torch.as_tensor([int(x) + 11 for x in seeds]),
                            device)
     return TrainingSetup(
@@ -91,16 +109,26 @@ def prepare_training(cfg, model_kind: str, batch_size: int,
         test_y=torch.as_tensor(data.test_y, device=device))
 
 
+POLICIES = ("cocs", "oracle", "random")
+
+
 def _make_policies(policies: Sequence[str], cfg, horizon
                    ) -> Dict[str, FunctionalPolicy]:
+    """Registry names -> policies, COCS with the config's knobs (as the
+    reference's ``_policy_kwargs``)."""
     spec = PolicySpec.from_experiment(cfg, horizon)
     out = {}
     for name in policies:
-        if name.lower() != "cocs":
-            raise NotImplementedError(
-                f"policy {name!r} is not ported yet; the slice runs "
-                "'cocs' (ROADMAP, queue A)")
-        out[name] = COCS(spec=spec, alpha=cfg.holder_alpha, h_t=cfg.h_t)
+        key = name.lower()
+        if key == "cocs":
+            out[name] = COCS(spec=spec, alpha=cfg.holder_alpha, h_t=cfg.h_t)
+        elif key == "oracle":
+            out[name] = Oracle(spec=spec)
+        elif key == "random":
+            out[name] = Random(spec=spec)
+        else:
+            raise KeyError(f"unknown policy {name!r}; the port has "
+                           f"{POLICIES}")
     return out
 
 
@@ -133,7 +161,7 @@ def sweep_experiments(policies: Sequence[str], env,
                          utilities={}, participants={}, selections={},
                          explored={})
     for name, pol in pols.items():
-        pstate = pol.init(len(seeds), dev)
+        pstate = pol.init(len(seeds), dev, seeds)
         edge = {k: v.clone() for k, v in setup.edge_seed.items()}
         pos = statics.pos0.clone()
         outs, lo = [], 0
@@ -154,4 +182,5 @@ def sweep_experiments(policies: Sequence[str], env,
         result.participants[name] = host("participants", True)
         result.selections[name] = host("selections", True)
         result.explored[name] = host("explored", True)
+        result.train_loss[name] = host("train_loss", True)
     return result

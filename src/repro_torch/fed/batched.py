@@ -8,12 +8,12 @@ slot) id), so both packages draw the same samples.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch import random as jr
-from repro_torch.fed.client import sgd_steps
+from repro_torch.fed.client import sgd_trajectory
 from repro_torch.models.logistic import Params
 
 
@@ -25,6 +25,7 @@ class BatchedRoundSpec:
     lr: float
     z_min: int
     t_es: int
+    model: str = "logreg"  # 'logreg' | 'cnn'
 
 
 def device_batch_indices(base_keys: torch.Tensor, t: torch.Tensor,
@@ -49,21 +50,37 @@ def device_batch_indices(base_keys: torch.Tensor, t: torch.Tensor,
     return idx.reshape(s, m, slots, steps, batch)
 
 
-def slot_train(slot_params: Params, batches: Dict[str, torch.Tensor],
-               spec: BatchedRoundSpec, out: torch.Tensor) -> torch.Tensor:
+def train_slots(slot_params: Params, batches: Dict[str, torch.Tensor],
+                spec: BatchedRoundSpec, out: torch.Tensor,
+                valid: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eq. 2 local SGD for every flattened slot (leading axis = slots).
 
     Writes each slot's delta into ``out`` (slots, D): the leaves
     flattened and laid side by side in dict order, the layout the
-    masked aggregation reads, so no copy is made between the two."""
-    final, _ = sgd_steps(slot_params, batches, spec.lr)
+    masked aggregation reads, so no copy is made between the two. A slot
+    that holds no client (``valid`` (slots,) 0) gets a zero delta, as the
+    reference's skipped slots: its weight is 0, and a model that diverged
+    on its padding must not put 0 * NaN into the aggregate. Returns
+    ``out`` and each slot's loss at each step (slots, steps)."""
+    final, losses = sgd_trajectory(slot_params, batches, spec.lr,
+                                   spec.model)
     off = 0
     for k, p0 in slot_params.items():
         size = p0[0].numel()
-        torch.sub(final[k], p0,
-                  out=out[:, off:off + size].view(p0.shape))
+        d = out[:, off:off + size]
+        torch.sub(final[k], p0, out=d.view(p0.shape))
+        if valid is not None:
+            d.masked_fill_((valid <= 0).view(-1, 1), 0.0)
         off += size
     if off != out.shape[1]:
         raise ValueError(f"out has {out.shape[1]} columns, the params "
                          f"{off}")
-    return out
+    return out, losses
+
+
+def slot_train(slot_params: Params, batches: Dict[str, torch.Tensor],
+               spec: BatchedRoundSpec, out: torch.Tensor,
+               valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``train_slots``' deltas alone."""
+    return train_slots(slot_params, batches, spec, out, valid)[0]

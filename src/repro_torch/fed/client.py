@@ -6,24 +6,35 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.models.logistic import Params, logreg_loss_and_grad
+from repro_torch.models.logistic import Params, loss_and_grad
 
 
-def sgd_steps(params: Params, batches: Dict[str, torch.Tensor],
-              lr: float) -> Tuple[Params, torch.Tensor]:
+def sgd_trajectory(params: Params, batches: Dict[str, torch.Tensor],
+                   lr: float, kind: str = "logreg"
+                   ) -> Tuple[Params, torch.Tensor]:
     """One SGD step per stacked batch for every client slot.
 
     params leaves (K, ...) (each slot starts from its own copy);
-    batches ``x`` (K, steps, B, F), ``y`` (K, steps, B). Returns the
-    final per-slot params and mean losses (K,)."""
+    batches ``x`` (K, steps, B, ...features), ``y`` (K, steps, B);
+    ``kind`` the model ('logreg' or 'cnn'). Returns the final per-slot
+    params and each step's loss before its update (K, steps)."""
+    grad = loss_and_grad(kind)
     p = dict(params)
     losses = []
     for step in range(batches["x"].shape[1]):
-        loss, g = logreg_loss_and_grad(p, batches["x"][:, step],
-                                       batches["y"][:, step])
+        loss, g = grad(p, batches["x"][:, step], batches["y"][:, step])
         p = {k: p[k] - lr * g[k] for k in p}
         losses.append(loss)
-    return p, torch.stack(losses, dim=-1).mean(dim=-1)
+    return p, torch.stack(losses, dim=-1)
+
+
+def sgd_steps(params: Params, batches: Dict[str, torch.Tensor],
+              lr: float, kind: str = "logreg"
+              ) -> Tuple[Params, torch.Tensor]:
+    """``sgd_trajectory`` with the mean loss over the steps (K,), as the
+    reference's ``local_sgd``."""
+    p, losses = sgd_trajectory(params, batches, lr, kind)
+    return p, losses.mean(dim=-1)
 
 
 def local_sgd_multi(params: Params, batches: Dict[str, torch.Tensor],

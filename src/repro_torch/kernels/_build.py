@@ -10,8 +10,9 @@ build or load error raises.
 
 ``--fmad=false`` (no contraction of a multiply and an add into one FMA)
 applies only to the sources whose plain versions they must match
-bitwise; the attention, scan and router kernels round differently from
-their plain versions anyway and keep nvcc's default contraction.
+bitwise (the HFL path's five); the attention, scan and router kernels
+round differently from their plain versions anyway and keep nvcc's
+default contraction.
 """
 from __future__ import annotations
 
@@ -25,12 +26,14 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("context_pairwise", "budgeted_topk", "masked_aggregate",
-           "flash_attention", "rwkv6_scan", "moe_router")
+           "flash_attention", "rwkv6_scan", "moe_router", "random_assign",
+           "flgreedy_walk")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BITWISE = ("--fmad=false",)
 EXTRA_FLAGS = {"context_pairwise": BITWISE, "budgeted_topk": BITWISE,
-               "masked_aggregate": BITWISE}
+               "masked_aggregate": BITWISE, "random_assign": BITWISE,
+               "flgreedy_walk": BITWISE}
 
 
 def flags(name: str) -> tuple:

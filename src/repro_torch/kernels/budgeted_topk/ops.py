@@ -1,11 +1,17 @@
-"""Budgeted top-k selection (P2 density greedy): routing by device.
+"""Budgeted top-k selection (P2 density greedy, P3 cost-benefit greedy):
+routing by device.
 
-A CUDA tensor launches the one-pass kernel (``kernel.py``,
+P2: a CUDA tensor launches the one-pass kernel (``kernel.py``,
 ``csrc/budgeted_topk.cu``): density, sort and budget walk for every seed
 in one launch, with no host sync. A CPU tensor takes the plain version
 (``ref.py``): the tile-sorted segments and the reference's walk over
 them, one pick per iteration. Both give the reference's assignments
 (``greedy_assign``) and budgets left (``greedy_walk``) bit for bit.
+
+P3 (``flgreedy_topk``): on CUDA, B2's keys-only launch (density and sort)
+and then P3's walk kernel (``csrc/flgreedy_walk.cu``), two launches for
+every seed and no host sync; on the CPU the plain version. Both give the
+reference's ``flgreedy_assign`` bit for bit.
 """
 from __future__ import annotations
 
@@ -15,7 +21,8 @@ import torch
 
 from repro_torch.kernels.budgeted_topk.ref import (  # noqa: F401
     DEFAULT_TILE, WALK_SYNCS, Segments, budgeted_topk_ref, build_segments,
-    density_sort_ref, greedy_walk, merge_heads, sorted_candidates)
+    candidate_keys_ref, density_sort_ref, flgreedy_topk_ref, flgreedy_walk,
+    greedy_walk, merge_heads, sorted_candidates)
 from repro_torch.kernels.common import on_cuda
 
 
@@ -42,3 +49,32 @@ def budgeted_topk(values: torch.Tensor, costs: torch.Tensor,
                   tile: int = DEFAULT_TILE) -> torch.Tensor:
     """``budgeted_topk_walk``'s assignment alone: (S, N) int32."""
     return budgeted_topk_walk(values, costs, budgets, eligible, tile)[0]
+
+
+def flgreedy_topk_walk(values: torch.Tensor, costs: torch.Tensor,
+                       budgets: torch.Tensor, eligible: torch.Tensor,
+                       tile: int = DEFAULT_TILE
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cost-benefit greedy for P3 (Eq. 19 sqrt utility, the total over
+    M). values (S, N, M), costs (S, N), budgets (S, M) or (M,), eligible
+    (S, N, M) bool -> (assign (S, N) int32, -1 = unselected; remaining
+    (S, M) float32)."""
+    s, n, m = values.shape
+    budgets = torch.as_tensor(budgets, dtype=torch.float32,
+                              device=values.device).expand(s, m)
+    if not on_cuda(values, costs, eligible):
+        return flgreedy_topk_ref(values, costs, budgets, eligible, tile)
+    from repro_torch.kernels.budgeted_topk.kernel import (
+        budgeted_topk_keys_kernel, flgreedy_walk_kernel)
+    values, costs = values.contiguous(), costs.contiguous()
+    keys, counts = budgeted_topk_keys_kernel(values, costs,
+                                             eligible.contiguous())
+    return flgreedy_walk_kernel(keys, counts, values, costs,
+                                budgets.contiguous())
+
+
+def flgreedy_topk(values: torch.Tensor, costs: torch.Tensor,
+                  budgets: torch.Tensor, eligible: torch.Tensor,
+                  tile: int = DEFAULT_TILE) -> torch.Tensor:
+    """``flgreedy_topk_walk``'s assignment alone: (S, N) int32."""
+    return flgreedy_topk_walk(values, costs, budgets, eligible, tile)[0]

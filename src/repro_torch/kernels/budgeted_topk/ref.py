@@ -1,5 +1,6 @@
-"""Plain PyTorch version of the budgeted_topk kernel: the P2 density
-table, its (density desc, flat index desc) order, and the budget walk.
+"""Plain PyTorch version of the budgeted_topk kernels: the P2 density
+table, its (density desc, flat index desc) order, the P2 budget walk and
+the P3 (sqrt utility) walk.
 
 The pick order is a strict total order, density descending with ties
 toward the larger flat (client * M + ES) index, so "the" sorted list is
@@ -11,10 +12,14 @@ reference's walk over those segments: each segment exposes its first
 still-feasible head, ``merge_heads`` takes the best head across segments,
 and the budget and assignment advance, one pick per iteration.
 
-The walk is batched over seeds with a per-seed ``live`` flag and reads
+The walks are batched over seeds with a per-seed ``live`` flag and read
 it back once per iteration (``live.any()``, a host sync on a CUDA
 tensor); ``WALK_SYNCS`` counts them. ``budgeted_topk_ref`` composes the
-two into the function the CUDA kernel computes.
+sort and the P2 walk into the function the CUDA kernel computes;
+``candidate_keys_ref`` is the kernel's sort alone (every eligible pair of
+a seed as one sorted list of 64-bit keys), and ``flgreedy_walk`` with
+``flgreedy_topk_ref`` is P3's walk, the reference's
+``ops.py::flgreedy_walk`` and ``flgreedy_topk``.
 """
 from __future__ import annotations
 
@@ -22,9 +27,11 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.core.fmath import rcp, sqrt_rn
+
 DEFAULT_TILE = 128
 
-WALK_SYNCS: Dict[str, int] = {"greedy_walk": 0}
+WALK_SYNCS: Dict[str, int] = {"greedy_walk": 0, "flgreedy_walk": 0}
 
 
 def pair_density(values: torch.Tensor, costs: torch.Tensor,
@@ -168,3 +175,106 @@ def budgeted_topk_ref(values: torch.Tensor, costs: torch.Tensor,
     s, n, m = values.shape
     segs = build_segments(values, costs, eligible, tile)
     return greedy_walk(segs, budgets, num_es=m, num_clients=n)
+
+
+def order_bits(d: torch.Tensor) -> torch.Tensor:
+    """float32 -> int64 in [0, 2^32) that orders as the floats do (after
+    ``+ 0.0``, so -0.0 and +0.0 share one image); -inf maps above 0."""
+    b = (d + 0.0).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(b >= 0x80000000, b ^ 0xFFFFFFFF, b | 0x80000000)
+
+
+def candidate_keys_ref(values: torch.Tensor, costs: torch.Tensor,
+                       eligible: torch.Tensor, capacity: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's sort without its walk: every pair of density > -inf
+    (eligible, not NaN) as the key ``order_bits(density) << 32 | client
+    << 14 | es``, each seed's keys sorted descending into ``capacity``
+    slots, zeros after them. Returns (keys (S, capacity) int64, counts
+    (S,) int32)."""
+    s, n, m = values.shape
+    dens = pair_density(values, costs, eligible).reshape(s, n * m)
+    keep = dens > -torch.inf
+    q = torch.arange(n * m, device=values.device)
+    low = (q // m) * (1 << 14) + q % m
+    # sorted as signed keys with the top bit flipped (unsigned order),
+    # flipped back after; a dropped pair is key 0, i.e. int64's minimum
+    low = torch.where(keep, low, torch.zeros_like(low))
+    top = torch.where(keep, order_bits(dens) - (1 << 31),
+                      torch.full_like(low, -(1 << 31)))
+    keys = torch.sort(top * (1 << 32) + low, dim=-1,
+                      descending=True).values ^ torch.iinfo(torch.int64).min
+    out = keys.new_zeros((s, capacity))
+    out[:, :n * m] = keys
+    return out, keep.sum(dim=-1).to(torch.int32)
+
+
+def flgreedy_gains(total: torch.Tensor, v: torch.Tensor, rcp_m: float
+                   ) -> torch.Tensor:
+    """``util(total + v) - util(total)`` with ``util(x) = sqrt(max(x, 0)
+    / M)``; the division by the constant M is XLA's reciprocal multiply
+    (R5), the roots correctly rounded."""
+    util = lambda x: sqrt_rn(torch.clamp(x, min=0.0) * rcp_m)
+    return util(total + v) - util(total)
+
+
+def flgreedy_walk(segs: Segments, budgets: torch.Tensor, *, num_es: int,
+                  num_clients: int, m_div: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The P3 cost-benefit walk (Eq. 19 sqrt utility) over ``Segments``:
+    gains depend on the running total, so every pick rescores every
+    eligible candidate, ``gain / max(cost, 1e-12)``, and takes the best
+    (ties toward the larger flat index) while its gain exceeds 1e-15.
+    budgets (S, M) float32. Returns (assign (S, N) int32, remaining)."""
+    m, n = num_es, num_clients
+    s = segs.density.shape[0]
+    dev = segs.density.device
+    rows = torch.arange(s, device=dev)
+    flat = segs.flat.reshape(s, -1)
+    loc, es = segs.loc.reshape(s, -1), segs.es.reshape(s, -1)
+    v, c = segs.value.reshape(s, -1), segs.cost.reshape(s, -1)
+    cand = (segs.density.reshape(s, -1) > -torch.inf) & (c > 0)
+    rcp_m = rcp(m_div)
+    assign = torch.full((s, n), -1, dtype=torch.int64, device=dev)
+    remaining = budgets.to(torch.float32).clone()
+    total = torch.zeros(s, dtype=torch.float32, device=dev)
+    live = torch.ones(s, dtype=torch.bool, device=dev)
+    for _ in range(n):
+        gains = flgreedy_gains(total[:, None], v, rcp_m)
+        feas = (cand & (torch.gather(assign, 1, loc) < 0)
+                & (c <= torch.gather(remaining, 1, es) + 1e-12))
+        r = torch.where(feas, gains / torch.clamp(c, min=1e-12),
+                        torch.full_like(gains, -torch.inf))
+        rmax = r.max(dim=-1).values
+        pick = torch.where(r == rmax[:, None], flat,
+                           torch.full_like(flat, -1)).max(dim=-1).values
+        pick = torch.clamp(pick, min=0)
+        at = torch.argmax((flat == pick[:, None]).to(torch.uint8), dim=-1,
+                          keepdim=True)
+        pv = torch.gather(v, 1, at)[:, 0]
+        pc = torch.gather(c, 1, at)[:, 0]
+        g = flgreedy_gains(total, pv, rcp_m)
+        act = (rmax > -torch.inf) & (g > 1e-15) & live
+        gi, j = pick // m, pick % m
+        assign[rows, gi] = torch.where(act, j, assign[rows, gi])
+        remaining[rows, j] = torch.where(act, remaining[rows, j] + (-pc),
+                                         remaining[rows, j])
+        total = torch.where(act, total + pv, total)
+        live = act
+        WALK_SYNCS["flgreedy_walk"] += 1
+        if not bool(live.any()):
+            break
+    return assign.to(torch.int32), remaining
+
+
+def flgreedy_topk_ref(values: torch.Tensor, costs: torch.Tensor,
+                      budgets: torch.Tensor, eligible: torch.Tensor,
+                      tile: int = DEFAULT_TILE
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """P3 over the tile-sorted segments, the utility's total over M:
+    values (S, N, M), costs (S, N), budgets (S, M), eligible (S, N, M)
+    -> (assign (S, N) int32, remaining (S, M) float32)."""
+    s, n, m = values.shape
+    segs = build_segments(values, costs, eligible, tile)
+    return flgreedy_walk(segs, budgets, num_es=m, num_clients=n,
+                         m_div=float(m))

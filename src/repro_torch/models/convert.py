@@ -9,6 +9,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from repro_torch.models.logistic import cnn_from_reference_layout
 from repro_torch.policies.cocs import COCSState
 
 
@@ -18,6 +19,28 @@ def from_jax_params(tree: Mapping[str, np.ndarray], device=None
     ``np.asarray`` on every leaf) -> a dict of tensors, same dtypes."""
     return {k: torch.as_tensor(np.array(v, copy=True), device=device)
             for k, v in tree.items()}
+
+
+def cnn_params_from_jax(tree: Mapping[str, np.ndarray], height: int = 32,
+                        width: int = 32, device=None) -> dict:
+    """The reference's CNN params (``init_cnn``: HWIO convolutions, ``f1``
+    rows in NHWC-flatten order), as numpy, -> the port's layout (OIHW,
+    NCHW-flatten rows)."""
+    return cnn_from_reference_layout(from_jax_params(tree, device), height,
+                                     width)
+
+
+def cnn_params_to_numpy(params: Mapping[str, torch.Tensor],
+                        height: int = 32, width: int = 32) -> dict:
+    """The inverse of ``cnn_params_from_jax``: the reference's layout
+    (HWIO convolutions, ``f1`` rows in NHWC-flatten order), as numpy."""
+    out = dict(params)
+    out["c1"] = params["c1"].permute(2, 3, 1, 0)
+    out["c2"] = params["c2"].permute(2, 3, 1, 0)
+    c = params["c2"].shape[0]
+    out["f1"] = params["f1"].reshape(c, height // 4, width // 4, -1).permute(
+        1, 2, 0, 3).reshape(params["f1"].shape)
+    return to_numpy_params({k: v.contiguous() for k, v in out.items()})
 
 
 def _leaf_to_tensor(a, device) -> torch.Tensor:

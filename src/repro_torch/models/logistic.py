@@ -1,16 +1,26 @@
-"""The paper's convex training model: multinomial logistic regression
-(the "MNIST" setting of Figs. 3/4).
+"""The paper's training models: multinomial logistic regression (the
+convex "MNIST" setting of Figs. 3/4) and the CNN of the non-convex
+"CIFAR-10" setting (Figs. 5-7).
 
-Parameters are a plain dict ``{"w": (F, C), "b": (C,)}``; every function
-takes optional leading batch axes on the parameters (one model per
-(seed, ES) or per slot). The CNN of the non-convex setting is not ported
-yet (ROADMAP, queue A).
+Parameters are plain dicts. Logistic regression is ``{"w": (F, C), "b":
+(C,)}``; its functions take optional leading batch axes on the
+parameters (one model per (seed, ES) or per slot). The CNN is two 5x5
+convolutions of 64 channels (``SAME``, each with ReLU and a 2x2 max-pool)
+and three dense layers (384, 192, classes). Its inputs are NHWC, as the
+reference's; its parameters are in PyTorch's layout: convolutions OIHW,
+and ``f1``'s rows in the order of an NCHW flatten (``models.convert``
+carries the reference's HWIO / NHWC-flatten params across). A batch of
+per-slot CNNs trains under ``torch.func.vmap`` (``cnn_loss_and_grad``).
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
+
+from repro_torch import random as jr
 
 Params = Dict[str, torch.Tensor]
 
@@ -58,14 +68,104 @@ def logreg_loss_and_grad(params: Params, x: torch.Tensor,
     return softmax_xent(logits, y), {"w": gw, "b": gb}
 
 
+def cnn_from_reference_layout(tree: Dict[str, torch.Tensor], height: int,
+                              width: int) -> Params:
+    """The reference's CNN params (HWIO convolutions, ``f1`` rows in
+    NHWC-flatten order) -> the port's layout (OIHW, rows in NCHW-flatten
+    order)."""
+    out = dict(tree)
+    for k in ("c1", "c2"):
+        out[k] = tree[k].permute(3, 2, 0, 1).contiguous()
+    c = tree["c2"].shape[-1]
+    out["f1"] = tree["f1"].reshape(height // 4, width // 4, c, -1).permute(
+        2, 0, 1, 3).reshape(tree["f1"].shape).contiguous()
+    return out
+
+
+def init_cnn(key: torch.Tensor, height: int = 32, width: int = 32,
+             channels: int = 3, num_classes: int = 10) -> Params:
+    """The reference's ``init_cnn`` draws: ``split(key, 5)``, normals
+    scaled by ``1 / sqrt(fan_in)`` (within ``random.normal``'s few ulp),
+    zero biases; then the port's layout. ``key`` (2,) on the device the
+    params go to."""
+    ks = jr.split(key, 5)
+    flat = (height // 4) * (width // 4) * 64
+    dev = key.device
+
+    def scaled(k, shape, fan_in):
+        # jnp.sqrt of the weak-typed fan-in: a float32 root; a true
+        # division outside jit
+        return jr.normal(k, shape) / torch.tensor(
+            np.sqrt(np.float32(fan_in)), dtype=torch.float32, device=dev)
+
+    zeros = lambda d: torch.zeros((d,), dtype=torch.float32, device=dev)
+    tree = {
+        "c1": scaled(ks[0], (5, 5, channels, 64), 5 * 5 * channels),
+        "b1": zeros(64),
+        "c2": scaled(ks[1], (5, 5, 64, 64), 5 * 5 * 64),
+        "b2": zeros(64),
+        "f1": scaled(ks[2], (flat, 384), flat),
+        "fb1": zeros(384),
+        "f2": scaled(ks[3], (384, 192), 384),
+        "fb2": zeros(192),
+        "out": scaled(ks[4], (192, num_classes), 192),
+        "outb": zeros(num_classes),
+    }
+    return cnn_from_reference_layout(tree, height, width)
+
+
+def cnn_logits(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """x (B, H, W, C) -> logits (B, classes), one model (unbatched
+    params; ``torch.func.vmap`` adds the slot axis)."""
+    h = x.permute(0, 3, 1, 2)
+    h = F.conv2d(h, params["c1"], params["b1"], padding=2)
+    h = F.max_pool2d(F.relu(h), 2, 2)
+    h = F.conv2d(h, params["c2"], params["b2"], padding=2)
+    h = F.max_pool2d(F.relu(h), 2, 2)
+    h = h.reshape(h.shape[0], -1)
+    h = F.relu(h @ params["f1"] + params["fb1"])
+    h = F.relu(h @ params["f2"] + params["fb2"])
+    return h @ params["out"] + params["outb"]
+
+
+def _cnn_loss(params: Params, x: torch.Tensor, y: torch.Tensor):
+    return softmax_xent(cnn_logits(params, x), y)
+
+
+def cnn_loss_and_grad(params: Params, x: torch.Tensor, y: torch.Tensor
+                      ) -> Tuple[torch.Tensor, Params]:
+    """``logreg_loss_and_grad`` for per-slot CNNs: params leaves (K, ...),
+    x (K, B, H, W, C), y (K, B) -> loss (K,), grads like params."""
+    from torch.func import grad_and_value, vmap
+    grads, loss = vmap(grad_and_value(_cnn_loss))(params, x, y)
+    return loss, grads
+
+
+def batched_logits(kind: str, params: Params, x: torch.Tensor
+                   ) -> torch.Tensor:
+    """Logits of per-seed models: params leaves (S, ...), x (T, ...)
+    shared -> (S, T, classes)."""
+    if kind == "logreg":
+        return logreg_logits(params, x)
+    from torch.func import vmap
+    return vmap(cnn_logits, in_dims=(0, None))(params, x)
+
+
+def loss_and_grad(kind: str) -> Callable:
+    """The batched ``(params, x, y) -> (loss (K,), grads)`` of a model."""
+    return {"logreg": logreg_loss_and_grad,
+            "cnn": cnn_loss_and_grad}[kind]
+
+
 def make_loss_fn(kind: str) -> Callable:
-    """kind: 'logreg'. Returns ``loss(params, batch)`` -> scalar(s)."""
-    if kind != "logreg":
-        raise NotImplementedError(
-            f"model {kind!r} is not ported yet; the slice runs 'logreg' "
-            "(ROADMAP, queue A)")
+    """kind: 'logreg' | 'cnn'. Returns ``loss(params, batch)`` -> the
+    mean cross-entropy of one model (or of per-model logreg batches)."""
+    logits = {"logreg": logreg_logits, "cnn": cnn_logits}.get(kind)
+    if logits is None:
+        raise ValueError(f"unknown model kind {kind!r}; the port has "
+                         "'logreg' and 'cnn'")
 
     def loss(params: Params, batch: Dict[str, torch.Tensor]):
-        return softmax_xent(logreg_logits(params, batch["x"]), batch["y"])
+        return softmax_xent(logits(params, batch["x"]), batch["y"])
 
     return loss

@@ -1,7 +1,7 @@
 """Functional policy API: a frozen config dataclass with pure
 ``init``/``select``/``update`` on tensors.
 
-    state          = policy.init(num_seeds, device)
+    state          = policy.init(num_seeds, device, seeds)
     assign, aux    = policy.select(state, rd)
     state          = policy.update(state, rd, assign, aux)
 
@@ -58,7 +58,9 @@ class FunctionalPolicy:
 
     name: str = "base"
 
-    def init(self, num_seeds: int, device=None):
+    def init(self, num_seeds: int, device=None, seeds=None):
+        """The state for ``num_seeds`` seeds; a policy that draws keys
+        takes them from ``seeds`` (default ``0 .. num_seeds - 1``)."""
         raise NotImplementedError
 
     def select(self, state, rd: Round) -> Tuple[Any, Any]:

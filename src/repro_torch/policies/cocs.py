@@ -4,7 +4,8 @@ State is two tensors, per-(seed, client, ES, hypercube) visit counters
 and participation estimates. A round bins each eligible pair's context
 into its hypercube, values under-explored pairs optimistically (UCB
 bonus; the Theorem 2 threshold ``K(t) = t^z log t``), solves P2 with the
-density greedy (``solvers.greedy_assign``), and folds the observed
+density greedy (``solvers.greedy_assign``), or P3 with FLGreedy under
+the sqrt utility (``solvers.flgreedy_assign``), and folds the observed
 outcomes of the selected pairs into the estimates. The arithmetic is the
 reference's (``policies/cocs.py``), operation for operation.
 """
@@ -18,7 +19,7 @@ import torch
 
 from repro_torch.core.fmath import sqrt_rn
 from repro_torch.policies.base import FunctionalPolicy, Round
-from repro_torch.policies.solvers import greedy_assign
+from repro_torch.policies.solvers import flgreedy_assign, greedy_assign
 
 
 def theorem2_params(horizon: int, alpha: float = 1.0) -> Tuple[float, int]:
@@ -40,23 +41,18 @@ class COCSState(NamedTuple):
 
 @dataclass(frozen=True)
 class COCS(FunctionalPolicy):
-    """Index-mode COCS with the P2 density greedy."""
+    """Index-mode COCS: P2's density greedy, or P3's FLGreedy when the
+    spec has the sqrt utility."""
     alpha: float = 1.0
     h_t: Optional[int] = None
 
     name: str = field(default="COCS")
 
-    def __post_init__(self):
-        if self.spec.sqrt_utility:
-            raise NotImplementedError(
-                "COCS with the sqrt utility needs the P3 flgreedy walk, "
-                "which is not ported yet (ROADMAP, queue A)")
-
     def _params(self) -> Tuple[float, int]:
         z, h_thm = theorem2_params(self.spec.horizon, self.alpha)
         return z, (self.h_t if self.h_t is not None else h_thm)
 
-    def init(self, num_seeds: int, device=None) -> COCSState:
+    def init(self, num_seeds: int, device=None, seeds=None) -> COCSState:
         _, h = self._params()
         shape = (num_seeds, self.spec.num_clients,
                  self.spec.num_edge_servers, h, h)
@@ -111,8 +107,9 @@ class COCS(FunctionalPolicy):
     def select(self, state: COCSState, rd: Round):
         values, under = self.pair_values(state, rd)
         budgets = torch.as_tensor(self.spec.budgets(), device=values.device)
-        assign = greedy_assign(values, rd.costs.to(values.dtype), budgets,
-                               rd.eligible)
+        solve = flgreedy_assign if self.spec.sqrt_utility else greedy_assign
+        assign = solve(values, rd.costs.to(values.dtype), budgets,
+                       rd.eligible)
         return assign, {"explored": under.any(dim=2).any(dim=1)}
 
     def update(self, state: COCSState, rd: Round, assign: torch.Tensor,

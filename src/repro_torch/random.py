@@ -20,6 +20,9 @@ batch dimensions (the seed axis): every draw then has shape
 ``normal`` ports XLA's float32 ``erf_inv`` polynomial literally;
 ``exponential`` is ``-log1p(-u)``. Both use PyTorch's ``log1p``, which is
 not XLA's: the remaining gap is a few ulp (tests state the bound).
+``gumbel`` is ``-log(-log(u))`` with PyTorch's ``log``, within a few ulp
+of ``max(1, |g|)`` likewise. ``permutation`` is exact: it sorts by random
+32-bit keys with a stable sort, as jax's ``_shuffle``.
 """
 from __future__ import annotations
 
@@ -175,3 +178,28 @@ def randint(key: torch.Tensor, shape, minval, maxval) -> torch.Tensor:
     off = (((hi_bits % span) * mult) & MASK) + (lo_bits % span)
     off = (off & MASK) % span
     return (lo + off).to(torch.int32)
+
+
+def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.gumbel`` (float32, ``mode="low"``):
+    ``-log(-log(u))`` with ``u`` uniform on ``[tiny, 1)``."""
+    tiny = float(np.finfo(np.float32).tiny)
+    return -torch.log(-torch.log(uniform(key, shape, tiny, 1.0)))
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` (int32, ``key.shape[:-1] +
+    (n,)``): ``ceil(3 ln n / ln(2^32 - 1))`` rounds, each a fresh
+    ``split`` and a stable ascending sort of ``arange(n)`` by 32 random
+    bits a position."""
+    n = int(n)
+    rounds = int(np.ceil(3 * np.log(max(1, n))
+                         / np.log(np.iinfo(np.uint32).max)))
+    x = torch.arange(n, dtype=torch.int32, device=key.device).expand(
+        key.shape[:-1] + (n,))
+    for _ in range(rounds):
+        ks = split(key)
+        key, sub = ks[..., 0, :], ks[..., 1, :]
+        order = torch.sort(bits(sub, (n,)), dim=-1, stable=True).indices
+        x = torch.gather(x, -1, order)
+    return x.contiguous()

@@ -4,12 +4,13 @@ batched over seeds.
 One round mirrors the reference's ``sim_round`` stage for stage:
 mobility update, client-ES association (with the stranded-client fix),
 the fused Eq. 4/5 pairwise stage (``kernels.context_pairwise``: one CUDA
-launch for all seeds), Eq. 6 deadline outcomes, tiered costs, bursty
-availability, context normalization and the Monte-Carlo ``true_p``. It
-consumes the same counter-based draws (``sim.draws``) and repeats the
-float32 arithmetic as the reference executes it under ``jit``
-(``core.fmath``), so a round matches the reference pointwise: costs and
-positions bitwise, the transcendental stages to a few ulp.
+launch for all seeds), Eq. 6 deadline outcomes, tiered costs, flash-crowd
+surge pricing, bursty availability, context normalization and the
+Monte-Carlo ``true_p``. It consumes the same counter-based draws
+(``sim.draws``) and repeats the float32 arithmetic as the reference
+executes it under ``jit`` (``core.fmath``), so a round matches the
+reference pointwise: costs and positions bitwise, the transcendental
+stages to a few ulp.
 
 Every function takes a leading seed axis ``S`` on its per-client tensors
 (the reference's ``vmap``); ``seeds`` is an int tensor ``(S,)``.
@@ -20,7 +21,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core.fmath import fma, mul_rcp
+from repro_torch.core.fmath import fma, fold, mul_rcp, rcp
 from repro_torch.core.network import es_positions
 from repro_torch.kernels.context_pairwise.ops import pairwise_context
 from repro_torch.kernels.context_pairwise.ref import latency
@@ -35,6 +36,7 @@ class SimStatics(NamedTuple):
     price: torch.Tensor          # (S, N)
     base_bw: torch.Tensor        # (S, N)
     base_comp: torch.Tensor      # (S, N)
+    surge_mask: torch.Tensor     # (S, N) bool — flash-crowd cohort
     arrival_phase: torch.Tensor  # (S, N) int32 — bursty-arrival phase
 
 
@@ -71,13 +73,18 @@ def init_statics(spec: SimSpec, seeds: torch.Tensor) -> SimStatics:
                   spec.bandwidth_low)
     base_comp = fma(di.comp_u, spec.compute_high - spec.compute_low,
                     spec.compute_low)
+    surge_mask = torch.zeros_like(di.perm, dtype=torch.bool)
+    if spec.surge_count > 0:
+        surge_mask.scatter_(-1, di.perm[..., :spec.surge_count].long(),
+                            True)
     if spec.arrival_period > 0:
         phase = torch.clamp((di.phase_u * spec.arrival_period)
                             .to(torch.int32), max=spec.arrival_period - 1)
     else:
         phase = torch.zeros_like(di.phase_u, dtype=torch.int32)
     return SimStatics(pos0=pos0, price=price, base_bw=base_bw,
-                      base_comp=base_comp, arrival_phase=phase)
+                      base_comp=base_comp, surge_mask=surge_mask,
+                      arrival_phase=phase)
 
 
 def sim_round(spec: SimSpec, seeds: torch.Tensor, statics: SimStatics,
@@ -109,7 +116,13 @@ def sim_round(spec: SimSpec, seeds: torch.Tensor, statics: SimStatics,
     nearest = torch.nn.functional.one_hot(torch.argmin(d, dim=-1),
                                           m).bool()
     eligible = eligible | (~eligible.any(dim=-1, keepdim=True) & nearest)
-    costs = mul_rcp(2.0 * statics.price * bandwidth, 1e6)
+    spend = 2.0 * statics.price * bandwidth
+    costs = mul_rcp(spend, 1e6)
+    if spec.surge_period > 0 and t % spec.surge_period < spec.surge_len:
+        # XLA folds the discount into the reciprocal of 1e6
+        costs = torch.where(statics.surge_mask,
+                            spend * fold(rcp(1e6), spec.surge_discount),
+                            costs)
     if spec.arrival_period > 0:
         active = ((t - statics.arrival_phase) % spec.arrival_period
                   < spec.arrival_len)

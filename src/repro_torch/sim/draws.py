@@ -8,8 +8,7 @@ port's streams are the reference's streams (``repro_torch.random``).
 
 Seeds may be an int or an int tensor ``(S,)``: every draw then carries a
 leading seed axis. Because the schedule is counter-based, a draw that is
-not made shifts no other stream: the flash-crowd ``perm`` draw (tag
-``_PERM``) is not ported yet and simply not made.
+not made shifts no other stream.
 """
 from __future__ import annotations
 
@@ -33,6 +32,7 @@ class InitDraws(NamedTuple):
     price_u: torch.Tensor    # (..., N)  U[0,1) — price or tier selector
     bw_u: torch.Tensor       # (..., N)  U[0,1) — base bandwidth profile
     comp_u: torch.Tensor     # (..., N)  U[0,1) — base compute profile
+    perm: torch.Tensor       # (..., N)  int32 permutation — surge cohort
     phase_u: torch.Tensor    # (..., N)  U[0,1) — bursty-arrival phase
 
 
@@ -62,6 +62,7 @@ def init_draws(seed, n: int, device=None) -> InitDraws:
         price_u=jr.uniform(jr.fold_in(k, _PRICE), (n,)),
         bw_u=jr.uniform(jr.fold_in(k, _BW0), (n,)),
         comp_u=jr.uniform(jr.fold_in(k, _COMP0), (n,)),
+        perm=jr.permutation(jr.fold_in(k, _PERM), n),
         phase_u=jr.uniform(jr.fold_in(k, _PHASE), (n,)),
     )
 

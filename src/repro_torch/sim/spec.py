@@ -10,8 +10,8 @@ constants.
 Presets: the paper-scale scenarios (``paper``, ``static-clients``,
 ``high-mobility``, ``tiered-pricing``) at N=50, M=3, and the cohorts
 ``metropolis-1k`` (1000 clients, 12 ES) and ``bursty-arrival`` (1024
-clients, 8 ES, duty-cycled availability). ``flash-crowd`` needs the
-surge-cohort permutation, which is not ported yet (ROADMAP, queue A).
+clients, 8 ES, duty-cycled availability). ``flash-crowd`` discounts a
+permuted cohort's prices during periodic surges.
 """
 from __future__ import annotations
 
@@ -86,6 +86,10 @@ class SimSpec:
     jitter: float
     price_tier_values: Optional[Tuple[float, ...]] = None
     price_tier_edges: Optional[Tuple[float, ...]] = None
+    surge_period: int = 0       # flash-crowd surges (0 disables)
+    surge_len: int = 10
+    surge_count: int = 0        # clients in the surge cohort
+    surge_discount: float = 0.3
     arrival_period: int = 0
     arrival_len: int = 1
     mc_true_p: int = 128        # Monte-Carlo fading pairs behind true_p
@@ -93,21 +97,19 @@ class SimSpec:
     def min_cost(self) -> float:
         """Analytic lower bound on any realized per-client cost:
         2 * price * bandwidth / 1e6 at the cheapest price and
-        bandwidth_low."""
+        bandwidth_low, times the flash-crowd discount."""
         price = (min(self.price_tier_values) if self.price_tier_values
                  else self.price_low)
-        return 2.0 * price * self.bandwidth_low / 1e6
+        cost = 2.0 * price * self.bandwidth_low / 1e6
+        if self.surge_period > 0:
+            cost *= self.surge_discount
+        return cost
 
     @classmethod
     def from_env(cls, cfg: HFLExperimentConfig, scen: ScenarioSpec
                  ) -> "SimSpec":
         """``true_p`` is the Monte-Carlo estimate; the analytic Eq. 6
         integral is not ported yet (ROADMAP, queue A)."""
-        if scen.surge_period > 0:
-            raise NotImplementedError(
-                f"scenario {scen.name!r} needs the surge-cohort "
-                "permutation draw, which is not ported yet (ROADMAP, "
-                "queue A)")
         tiers = scen.price_tiers
         return cls(
             num_clients=cfg.num_clients,
@@ -127,6 +129,11 @@ class SimSpec:
                                if tiers else None),
             price_tier_edges=(tuple(float(e) for e in tier_edges(tiers))
                               if tiers else None),
+            surge_period=scen.surge_period, surge_len=scen.surge_len,
+            surge_count=(max(1, int(round(scen.surge_frac
+                                          * cfg.num_clients)))
+                         if scen.surge_period > 0 else 0),
+            surge_discount=scen.surge_discount,
             arrival_period=scen.arrival_period,
             arrival_len=(max(1, int(round(scen.arrival_duty
                                           * scen.arrival_period)))
@@ -160,8 +167,13 @@ class DeviceEnv(NamedTuple):
     spec: SimSpec
 
 
-def make(name: str = "paper") -> DeviceEnv:
-    cfg, scen = preset(name)
+def make(name: str = "paper", cfg: Optional[HFLExperimentConfig] = None
+         ) -> DeviceEnv:
+    """A preset's device environment; ``cfg`` replaces its experiment
+    config (``make("paper", CIFAR10_NONCONVEX)``), as the reference's
+    ``sim.make``."""
+    pcfg, scen = preset(name)
+    cfg = pcfg if cfg is None else cfg
     return DeviceEnv(cfg, scen, SimSpec.from_env(cfg, scen))
 
 

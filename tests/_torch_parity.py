@@ -11,6 +11,10 @@ import torch
 NORMAL_MAX_ULP = 3
 # exponential draws: -log1p(-u), PyTorch's log1p against XLA's
 EXPONENTIAL_MAX_ULP = 1
+# gumbel draws: -log(-log u), PyTorch's log against XLA's twice; near
+# g = 0 one ulp of the inner log is many ulp of g, so the bound is in
+# ulp of max(1, |g|) (measured 1.86 over 10^6 draws)
+GUMBEL_MAX_ULP1 = 3
 # env tensors (gain, rate, tau, contexts): one ulp of log/log1p moves
 # the path loss by an ulp of a ~150 dB number, 3.5e-6 relative in gain
 ENV_RTOL = 5e-6
@@ -57,3 +61,25 @@ def bitwise(a, b) -> bool:
                                        np.int32 if a.itemsize == 4
                                        else np.int64)))
     return bool(np.array_equal(a, b))
+
+
+# sweeps: accuracy and loss to the reference's own fused-vs-host
+# tolerance; selections and the per-round outputs bitwise
+SWEEP_ACC_TOL = 1e-4
+SWEEP_POLICIES = ("cocs", "oracle", "random")
+SWEEP_FIELDS = ("selections", "utilities", "participants", "explored")
+
+
+def sweeps_agree(want, got, policies=SWEEP_POLICIES) -> None:
+    """A reference ``SweepResult`` against the port's."""
+    assert list(got.eval_rounds) == list(want.eval_rounds)
+    for p in policies:
+        for f in SWEEP_FIELDS:
+            w, g = np.asarray(getattr(want, f)[p]), getattr(got, f)[p]
+            assert g.shape == w.shape, (p, f)
+            assert np.array_equal(w, g), (p, f)
+        for f in ("accuracy", "loss"):
+            w, g = np.asarray(getattr(want, f)[p]), getattr(got, f)[p]
+            assert np.all(np.isfinite(g)), (p, f)
+            assert np.abs(w - g).max() <= SWEEP_ACC_TOL, (p, f)
+        assert (got.selections[p] >= 0).any(), p

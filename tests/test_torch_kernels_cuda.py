@@ -1,4 +1,5 @@
-"""The six CUDA kernels against their plain PyTorch versions. These
+"""The CUDA kernels against their plain PyTorch versions (the six that
+replace TPU kernels, and Random's scan and P3's walk). These
 need an NVIDIA GPU (and nvcc to build the kernels at first use); on a
 machine without one they skip. On the card:
 
@@ -168,6 +169,86 @@ def test_budgeted_topk_refuses_over_the_limit(dev):
         budgeted_topk_walk(*_topk_inputs(dev, 1, MAX_PAIRS + 1, 1,
                                          "random"))
     assert common.LAUNCHES["budgeted_topk"] == before
+
+
+def _p3_inputs(dev, s, n, m, kind, seed=0):
+    """values, costs, budgets, eligible for P3's and Random's kernels."""
+    v, c, b, e = _topk_inputs(dev, s, n, m, kind, seed)
+    if kind == "coarse":            # few distinct rates: ties to break
+        v = torch.round(v * 3) / 3
+        c = torch.round(c)
+    b = b * (12.0 / 3.5) if n >= 500 else b
+    return v, c, b, e
+
+
+P3_CASES = [(2, 1000, 12, "random"), (2, 50, 3, "random"),
+            (2, 50, 3, "ties"), (3, 130, 5, "coarse"),
+            (2, 64, 12, "ineligible"), (1, 1, 1, "random"),
+            (2, 1024, 16, "random"), (2, 2048, 8, "random")]
+
+
+@pytest.mark.parametrize("s,n,m,kind", P3_CASES)
+def test_flgreedy_walk(dev, s, n, m, kind):
+    """B2's keys-only launch, then P3's walk: one launch each, no host
+    sync, keys, assign and remaining bitwise the plain versions'."""
+    from repro_torch.kernels.budgeted_topk.kernel import (
+        budgeted_topk_keys_kernel, key_capacity)
+    from repro_torch.kernels.budgeted_topk.ops import (WALK_SYNCS,
+                                                       flgreedy_topk_walk)
+    from repro_torch.kernels.budgeted_topk.ref import (candidate_keys_ref,
+                                                       flgreedy_topk_ref)
+    v, c, b, e = _p3_inputs(dev, s, n, m, kind, seed=n + m)
+    keys, counts = budgeted_topk_keys_kernel(v, c, e)
+    rk, rc = candidate_keys_ref(v, c, e, key_capacity(n, m))
+    assert torch.equal(counts, rc) and torch.equal(keys, rk)
+    before = dict(common.LAUNCHES)
+    syncs = WALK_SYNCS["flgreedy_walk"]
+    ka, kr = flgreedy_topk_walk(v, c, b, e)
+    assert common.LAUNCHES["budgeted_topk"] == before["budgeted_topk"] + 1
+    assert common.LAUNCHES["flgreedy_walk"] == before["flgreedy_walk"] + 1
+    assert WALK_SYNCS["flgreedy_walk"] == syncs
+    ra, rr = flgreedy_topk_ref(v, c, b, e)
+    assert torch.equal(ka, ra)
+    assert torch.equal(kr.view(torch.int32), rr.view(torch.int32))
+
+
+@pytest.mark.parametrize("s,n,m,kind", P3_CASES + [(2, 300, 40, "random"),
+                                                   (1, 200, 200, "random")])
+def test_random_assign(dev, s, n, m, kind):
+    """Random's scan on the same draws: one launch, bitwise the plain
+    version's assign and remaining (M up to 200: several ESs a lane)."""
+    from repro_torch import random as jr
+    from repro_torch.kernels.random_assign.ops import (random_draws,
+                                                       random_scan)
+    from repro_torch.kernels.random_assign.ref import random_assign_ref
+    v, c, b, e = _p3_inputs(dev, s, n, m, kind, seed=n)
+    order, gum = random_draws(jr.PRNGKey(torch.arange(s, device=dev)), n,
+                              m)
+    if kind == "ties":
+        gum = torch.round(gum)      # equal Gumbels: the lower ES wins
+    before = common.LAUNCHES["random_assign"]
+    ka, kr = random_scan(order, gum, c, b, e)
+    assert common.LAUNCHES["random_assign"] == before + 1
+    ra, rr = random_assign_ref(order, gum, c, b, e)
+    assert torch.equal(ka, ra)
+    assert torch.equal(kr.view(torch.int32), rr.view(torch.int32))
+
+
+def test_new_kernels_refuse_over_their_limits(dev):
+    from repro_torch.kernels.budgeted_topk.kernel import (
+        MAX_PAIRS, budgeted_topk_keys_kernel)
+    from repro_torch.kernels.random_assign.kernel import (
+        MAX_ES, random_assign_kernel)
+    v, c, b, e = _topk_inputs(dev, 1, MAX_PAIRS + 1, 1, "random")
+    with pytest.raises(ValueError, match=str(MAX_PAIRS)):
+        budgeted_topk_keys_kernel(v, c, e)
+    m = MAX_ES + 1
+    with pytest.raises(ValueError, match=str(MAX_ES)):
+        random_assign_kernel(
+            torch.zeros(1, 4, dtype=torch.int32, device=dev),
+            torch.zeros(1, 4, m, device=dev), torch.zeros(1, 4, device=dev),
+            torch.zeros(1, m, device=dev),
+            torch.zeros(1, 4, m, dtype=torch.bool, device=dev))
 
 
 @pytest.mark.parametrize("r,s,d,kind", [(24, 16, 7850, "random"),

@@ -94,7 +94,7 @@ def test_init_draws(seed):
     n = 57
     want = jdraws.init_draws(seed, n)
     got = tdraws.init_draws(seed, n)
-    for f in ("pos_u", "price_u", "bw_u", "comp_u", "phase_u"):
+    for f in ("pos_u", "price_u", "bw_u", "comp_u", "perm", "phase_u"):
         assert bitwise(getattr(want, f), getattr(got, f)), f
     # a seed batch gives each seed's own stream
     both = tdraws.init_draws(torch.tensor([seed, seed + 1]), n)

@@ -90,5 +90,35 @@ def test_sim_round_matches_reference(preset):
 
 
 def test_flash_crowd_waits_for_the_permutation():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tspec.make("flash-crowd")
+    """``flash-crowd`` waited on the ``permutation`` draw, which picks its
+    surge cohort. Now: the cohort (``surge_mask``) equals the reference's
+    bitwise, and so do the costs, in and out of a surge (rounds 0-11 of a
+    50-round period whose first 10 discount the cohort), with the
+    reference's own round draws fed to the port."""
+    env = jsim.make("flash-crowd")
+    js = env.spec
+    ts = tspec.make("flash-crowd").spec
+    assert ts.surge_count == js.surge_count > 0
+    assert ts.min_cost() == js.min_cost()
+    seeds = (0, 1, 2)
+    n, m = js.num_clients, js.num_edge_servers
+    init = jax.jit(jcore.init_statics, static_argnums=0)
+    jst = [init(js, jnp.uint32(s)) for s in seeds]
+    tst = tcore.init_statics(ts, torch.tensor(seeds))
+    want_mask = np.stack([np.asarray(x.surge_mask) for x in jst])
+    assert bitwise(want_mask, tst.surge_mask)
+    assert (want_mask.sum(axis=1) == js.surge_count).all()
+    step = jax.jit(jcore.sim_round, static_argnums=0)
+    jpos, tpos = [x.pos0 for x in jst], tst.pos0
+    discounted = 0
+    for t in range(12):
+        dr = [jdraws.round_draws(s, t, n, m, js.mc_true_p) for s in seeds]
+        outs = [step(js, jnp.uint32(s), st, p, jnp.int32(t), d)
+                for s, st, p, d in zip(seeds, jst, jpos, dr)]
+        jpos = [o[0] for o in outs]
+        tpos, got = tcore.sim_round(ts, torch.tensor(seeds), tst, tpos, t,
+                                    dr=_stack_draws(dr))
+        want = np.stack([np.asarray(o[1].round.costs) for o in outs])
+        assert bitwise(want, got.round.costs), f"round {t}"
+        discounted += int(t < js.surge_len) * int(want_mask.sum())
+    assert discounted > 0
