@@ -5,7 +5,8 @@
     python3 chip_smoke.py --profile   # also: profiler traces of the
                                       # HFL main path (with B1-B3's
                                       # time a launch inside it), of
-                                      # the non-convex path, and of
+                                      # the non-convex path, of the
+                                      # bandit tier's stages, and of
                                       # a prefill and decode steps of
                                       # each LM (kernel time by name,
                                       # device busy share), a depth sweep
@@ -117,10 +118,25 @@ Phases, in order; any failure exits non-zero before a result is printed:
     above 1e-3 (2 of 2000 test samples) or any selection row that
     differs. The test loss is printed, not gated: on this synthetic data
     it shows no trend over 60 rounds at either lr (accuracy stays near
-    0.1). B3 at the CNN's width at the capacities the gated run used.
+    0.1). B3 at the CNN's width at the capacities the gated run used;
+15. the bandit tier (tier 1, Fig. 3's workload) through
+    ``repro_torch.run``: paper-fig3's three policies (``POLICY_TABLE``'s
+    seed offsets) on ``metropolis-1k``, 2 seeds, 400 rounds with
+    analytic ``true_p``, each with B1 and its selection kernel launched
+    once a round, no walk host sync, every (seed, round, ES) spend
+    within budget (one replay of the env), utilities equal to
+    participants; the same specs with Monte-Carlo ``true_p`` for 50
+    rounds, bitwise equal to the analytic runs' first 50;
+    ``run_bandit_device_grid`` over budgets (8, 12, 16) x 2 seeds,
+    bitwise equal to one sequential run a budget; ``device:paper`` on
+    the CPU against CUDA, 40 rounds, at most 1% of rows differing; tier
+    4 through ``run`` (COCS, 10 rounds) equal to ``sweep_experiments``.
+    Rounds/s per policy and mode, cumulative utility and regret against
+    the Oracle are printed, not gated; ``--profile`` adds ``round.env``
+    and ``round.select`` host ms for 5 COCS rounds in each mode.
 
-Phases 4, 8, 9, 10, 13 and 14 each zero the launch counts just before
-their run and read them just after.
+Phases 4, 8, 9, 10, 13, 14 and 15 each zero the launch counts just
+before their run and read them just after.
 
 The last three lines are the card's name and power limit, a JSON line
 of per-kernel numbers (with the launch floor), and ``{"ok": true,
@@ -2165,6 +2181,289 @@ def prefill_drops(dev, cfg, params) -> list:
     return dropped
 
 
+# -- phase 15: the bandit tier -----------------------------------------------
+
+# paper-fig3's workload (Fig. 3: cumulative utility and regret against the
+# Oracle, no training) at full width: metropolis-1k, 2 seeds, its 400
+# rounds, through the facade (tier 1, analytic true_p)
+BANDIT_SEEDS = (0, 1)
+BANDIT_HORIZON = 400
+BANDIT_MC_ROUNDS = 50               # the Monte-Carlo mode's prefix
+BANDIT_GRID_BUDGETS = (8.0, 12.0, 16.0)
+BANDIT_GRID_ROUNDS = 50
+BANDIT_CPU_ROUNDS = 40              # device:paper, CPU against CUDA
+BANDIT_TIER4_ROUNDS = 10
+BANDIT_PROFILE_ROUNDS = 5
+
+
+def bandit_spec(reg, true_p, horizon, scenario="metropolis-1k"):
+    """paper-fig3's spec of one policy (``POLICY_TABLE``'s seed offset)
+    on a device env."""
+    from repro_torch import api
+    from repro_torch.core.utility import POLICY_TABLE
+    offset = dict(POLICY_TABLE.values())[reg]
+    return api.ExperimentSpec(
+        policy=api.PolicySpec(reg, seed_offset=offset),
+        env=api.EnvSpec(scenario, backend="device", true_p=true_p),
+        horizon=horizon, seeds=BANDIT_SEEDS)
+
+
+def counted(fn):
+    """``fn()`` with the launch counts and walk syncs set to 0 just
+    before it and read just after: (result, wall s, launches, syncs)."""
+    import torch
+    from repro_torch.kernels import common
+    from repro_torch.kernels.budgeted_topk import ops as topk_ops
+    common.reset_launches()
+    for k in topk_ops.WALK_SYNCS:
+        topk_ops.WALK_SYNCS[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return res, wall, dict(common.LAUNCHES), dict(topk_ops.WALK_SYNCS)
+
+
+def bandit_budget_check(env, dev, sels):
+    """Replays the environment once for the per-round costs and holds
+    every policy's selections (``sels``: name -> (S, T, N)) to
+    eligibility and to each ES's budget, for every (seed, round, ES), on
+    the card. Returns the largest spend of each policy."""
+    import torch
+    from repro_torch.sim.core import init_statics, round_batch
+    m, budget = env.cfg.num_edge_servers, env.cfg.budget
+    seed_t = torch.as_tensor(BANDIT_SEEDS, device=dev)
+    statics = init_statics(env.spec, seed_t)
+    pos = statics.pos0
+    sel_d = {k: torch.as_tensor(v, device=dev).long()
+             for k, v in sels.items()}
+    worst = {k: [] for k in sels}
+    bad = {k: [] for k in sels}
+    for t in range(next(iter(sels.values())).shape[1]):
+        pos, rd = round_batch(env.spec, seed_t, statics, pos, t)
+        costs = rd.costs.double()
+        for k, a_all in sel_d.items():
+            a = a_all[:, t]
+            chosen = a >= 0
+            j = a.clamp(min=0)
+            ok = torch.gather(rd.eligible, 2, j[..., None])[..., 0]
+            spend = torch.zeros(a.shape[0], m, dtype=torch.float64,
+                                device=dev).scatter_add_(
+                1, j, torch.where(chosen, costs, torch.zeros_like(costs)))
+            worst[k].append(spend.max())
+            bad[k].append((chosen & ~ok).any() | (spend > budget
+                                                  + 1e-6).any())
+    out = {}
+    for k in sels:
+        if bool(torch.stack(bad[k]).any()):
+            fail(f"bandit {k}: an ineligible pair or an ES over its budget "
+                 f"{budget}")
+        out[k] = float(torch.stack(worst[k]).max())
+    return out
+
+
+def bandit_profile(dev):
+    """``round.env`` and ``round.select`` host ms a round, COCS in each
+    ``true_p`` mode (``sim/engine.py``'s labels), under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    import repro_torch
+    out = {}
+    for mode in ("analytic", "mc"):
+        spec = bandit_spec("cocs", mode, BANDIT_PROFILE_ROUNDS)
+        repro_torch.run(spec, device=dev)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            repro_torch.run(spec, device=dev)
+            torch.cuda.synchronize()
+        stages = {e.key: e.cpu_time_total / 1e3 / BANDIT_PROFILE_ROUNDS
+                  for e in prof.key_averages()
+                  if e.key.startswith("round.")
+                  and e.device_type == DeviceType.CPU}
+        out[mode] = stages
+        print(f"  profile, cocs {mode}: " + ", ".join(
+            f"{k} {v:.3f} ms host a round" for k, v in sorted(
+                stages.items())))
+    return out
+
+
+def bandit_tier(dev, profile: bool = False):
+    """Phase 15: the bandit tier on the card, through ``repro_torch.run``
+    (tier 1): paper-fig3's three policies at full width in both ``true_p``
+    modes, the budget grid against sequential runs, the CPU against CUDA,
+    and tier 4 through the facade against ``sweep_experiments``."""
+    import numpy as np
+    import torch
+    import repro_torch
+    from repro_torch import policies
+    from repro_torch.core.utility import _policy_kwargs
+    from repro_torch.data.federated import FederatedDataset
+    from repro_torch.experiment.sweep import sweep_experiments
+    from repro_torch.sim import spec as simspec
+    from repro_torch.sim.engine import (run_bandit_device,
+                                        run_bandit_device_grid)
+    t_phase = time.perf_counter()
+    env = simspec.make("metropolis-1k", true_p="analytic")
+    n, m = env.cfg.num_clients, env.cfg.num_edge_servers
+    fields = ("selections", "utilities", "participants", "explored")
+    out = {"rounds_per_s": {}, "cumulative_utility": {}, "regret": {}}
+    runs = {}
+    for mode, horizon in (("analytic", BANDIT_HORIZON),
+                          ("mc", BANDIT_MC_ROUNDS)):
+        for pol in POLICIES:
+            res, wall, launches, syncs = counted(
+                lambda: repro_torch.run(bandit_spec(pol, mode, horizon),
+                                        device=dev))
+            what = f"bandit {pol} ({mode})"
+            if res.tier != 1 or res.env_backend != "device":
+                fail(f"{what}: tier {res.tier}, {res.env_backend} env")
+            if launches["context_pairwise"] != horizon:
+                fail(f"{what}: context_pairwise launched "
+                     f"{launches['context_pairwise']} times in {horizon} "
+                     f"rounds")
+            for k in ("budgeted_topk", "random_assign", "flgreedy_walk",
+                      "masked_aggregate"):
+                want = horizon if k in SELECT_KERNELS[pol] else 0
+                if launches[k] != want:
+                    fail(f"{what}: {k} launched {launches[k]} times in "
+                         f"{horizon} rounds, expected {want}")
+            if any(syncs.values()):
+                fail(f"{what}: a selection walk synced with the host: "
+                     f"{syncs}")
+            sel = res.selections
+            if sel.shape != (len(BANDIT_SEEDS), horizon, n) or \
+                    sel.min() < -1 or sel.max() >= m:
+                fail(f"{what}: selections of shape {sel.shape} in "
+                     f"[{sel.min()}, {sel.max()}]")
+            if not (np.isfinite(res.utilities).all()
+                    and np.isfinite(res.participants).all()):
+                fail(f"{what}: non-finite utilities")
+            if not np.array_equal(res.utilities, res.participants):
+                fail(f"{what}: utilities differ from participants under "
+                     f"the linear utility")
+            runs[(pol, mode)] = res
+            rps = horizon / wall
+            out["rounds_per_s"][f"{pol}/{mode}"] = rps
+            print(f"  {pol} ({mode} true_p): {horizon} rounds in "
+                  f"{wall:.3f} s = {rps:.3f} rounds/s ({len(BANDIT_SEEDS)} "
+                  f"seeds x {n} clients x {m} ES); launches "
+                  f"{ {k: v for k, v in launches.items() if v} }; walk "
+                  f"host syncs {syncs}")
+    t0 = time.perf_counter()
+    worst = bandit_budget_check(
+        env, dev, {p: runs[(p, "analytic")].selections for p in POLICIES})
+    print(f"  max ES spend over {BANDIT_HORIZON} rounds: "
+          f"{ {k: round(v, 6) for k, v in worst.items()} } <= budget "
+          f"{env.cfg.budget} (replay {time.perf_counter() - t0:.1f} s)")
+    oracle = runs[("oracle", "analytic")].utilities
+    for pol in POLICIES:
+        a, b = runs[(pol, "analytic")], runs[(pol, "mc")]
+        for f in fields:
+            if not np.array_equal(getattr(a, f)[:, :BANDIT_MC_ROUNDS],
+                                  getattr(b, f)):
+                fail(f"bandit {pol}: mc mode's {f} differ from the "
+                     f"analytic run's first {BANDIT_MC_ROUNDS} rounds")
+        cum = a.utilities.sum(axis=1)
+        reg = (oracle - a.utilities).sum(axis=1)
+        out["cumulative_utility"][pol] = cum.tolist()
+        out["regret"][pol] = reg.tolist()
+        print(f"  {pol}: cumulative utility at T={BANDIT_HORIZON} "
+              f"{cum.tolist()}, regret against the Oracle {reg.tolist()}")
+    print(f"  mc mode's first {BANDIT_MC_ROUNDS} rounds bitwise equal to "
+          f"the analytic run's, three policies")
+
+    # the budget grid, cell-major, against one sequential run a budget
+    t0 = time.perf_counter()
+    kw = _policy_kwargs(env.cfg, "cocs")
+    h = BANDIT_GRID_ROUNDS
+    cells = BANDIT_GRID_BUDGETS
+    s = len(BANDIT_SEEDS)
+    grid_seeds = [x for _ in cells for x in BANDIT_SEEDS]
+    pol = policies.make("cocs", policies.PolicySpec.from_experiment(
+        env.cfg, h), **kw)
+    grid, wall, launches, syncs = counted(lambda: run_bandit_device_grid(
+        pol, env.spec, grid_seeds, [b for b in cells for _ in range(s)],
+        [env.cfg.deadline_s] * len(grid_seeds), h, grid_seeds,
+        device=dev))
+    if launches["context_pairwise"] != h or launches["budgeted_topk"] != h \
+            or any(syncs.values()):
+        fail(f"bandit grid: launches {launches}, walk syncs {syncs}")
+    for i, b in enumerate(cells):
+        seq_pol = policies.make("cocs", policies.PolicySpec.from_experiment(
+            env.cfg, h, budget=b), **kw)
+        seq = run_bandit_device(seq_pol, env.spec, BANDIT_SEEDS, h,
+                                device=dev)
+        for f in fields:
+            if not np.array_equal(seq[f], grid[f][i * s:(i + 1) * s]):
+                fail(f"bandit grid: budget {b}: {f} differ from the "
+                     f"sequential run")
+    sizes = [int((grid["selections"][i * s:(i + 1) * s] >= 0).sum())
+             for i in range(len(cells))]
+    print(f"  grid over budgets {cells} x {s} seeds, {h} rounds: one run "
+          f"of {len(grid_seeds)} elements in {wall:.3f} s, bitwise equal "
+          f"to the sequential runs ({time.perf_counter() - t0:.1f} s in "
+          f"all); clients selected per cell {sizes}")
+    out["grid"] = dict(budgets=list(cells), rounds=h, wall_s=wall,
+                       selected=sizes)
+
+    # the port on the CPU against the port on CUDA, device:paper
+    t0 = time.perf_counter()
+    out["cpu_vs_cuda"] = {}
+    for pol in POLICIES:
+        spec = bandit_spec(pol, "mc", BANDIT_CPU_ROUNDS, scenario="paper")
+        a = repro_torch.run(spec, device="cpu").selections
+        b = repro_torch.run(spec, device=dev).selections
+        rows = int((a != b).any(axis=-1).sum())
+        n_rows = a.shape[0] * a.shape[1]
+        print(f"  paper/{pol}, CPU against CUDA, {len(BANDIT_SEEDS)} seeds x "
+              f"{BANDIT_CPU_ROUNDS} rounds: {rows} of {n_rows} selection "
+              f"rows differ")
+        if rows > 0.01 * n_rows:
+            fail(f"bandit paper/{pol}: {rows} of {n_rows} selection rows "
+                 f"differ CPU vs CUDA")
+        out["cpu_vs_cuda"][pol] = rows
+    print(f"  CPU against CUDA in {time.perf_counter() - t0:.1f} s")
+
+    # tier 4 through the facade against sweep_experiments
+    t0 = time.perf_counter()
+    from repro_torch import api
+    data = FederatedDataset.synthetic(n, kind="mnist", samples_per_client=50,
+                                      seed=0)
+    data.stacked(dev)
+    t4 = api.ExperimentSpec(
+        policy=api.PolicySpec("cocs"), env=api.EnvSpec("metropolis-1k"),
+        train=api.TrainSpec(), eval=api.EvalSpec(eval_every=5),
+        horizon=BANDIT_TIER4_ROUNDS, seeds=BANDIT_SEEDS)
+    got = repro_torch.run(t4, data=data, device=dev)
+    want = sweep_experiments(("cocs",), "device:metropolis-1k",
+                             seeds=BANDIT_SEEDS,
+                             horizon=BANDIT_TIER4_ROUNDS, eval_every=5,
+                             data=data, device=dev)
+    if got.tier != 4:
+        fail(f"tier 4: the facade ran tier {got.tier}")
+    for f in fields:
+        if not np.array_equal(getattr(got, f), getattr(want, f)["cocs"]):
+            fail(f"tier 4: {f} differ between run and sweep_experiments")
+    gap = max(float(np.abs(got.accuracy - want.accuracy["cocs"]).max()),
+              float(np.abs(got.loss - want.loss["cocs"]).max()))
+    if not np.isfinite(got.accuracy).all() or gap > 1e-6:
+        fail(f"tier 4: accuracy or loss gap {gap} between run and "
+             f"sweep_experiments")
+    print(f"  tier 4 (cocs, metropolis-1k, {BANDIT_TIER4_ROUNDS} rounds): "
+          f"run equals sweep_experiments (selections bitwise, accuracy and "
+          f"loss gap {gap:.3e}); final accuracy {got.final_accuracy()} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    out["tier4_gap"] = gap
+    if profile:
+        out["profile"] = bandit_profile(dev)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 15 in {out['phase_s']:.1f} s")
+    return out
+
+
 # -- phase 11: the serve slice on CPU against CUDA ---------------------------
 
 def lm_cpu_vs_cuda(dev):
@@ -2336,6 +2635,10 @@ def main() -> int:
           "P3; cocs/oracle/random)")
     nonconvex = nonconvex_path(dev, b3_worst, profile)
 
+    print("phase 15: bandit tier (repro_torch.run, tier 1, metropolis-1k, "
+          "cocs/oracle/random)")
+    bandit = bandit_tier(dev, profile)
+
     # each kernel's launches on its own main path: B1-B3 and Random's
     # scan the HFL runs of phase 4 (three policies), P3's walk the gated
     # non-convex run, B4 the qwen2 serve (the shape its row is timed at;
@@ -2367,7 +2670,7 @@ def main() -> int:
                       "device_times_taken_with": TIMED_WITH,
                       "rounds_per_s": rps, "hfl_cpu_vs_cuda":
                       hfl_cpu_vs_cuda, "nonconvex": nonconvex,
-                      "serve": serve_rows}))
+                      "bandit": bandit, "serve": serve_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,6 +2,24 @@
 
 Mirrors the JAX reference package ``repro`` path for path, slice by
 slice, with hand-written CUDA kernels for the H100 in ``csrc/``. Imports
-``torch`` and numpy only. Entry point of the first slice:
-``repro_torch.experiment.sweep.sweep_experiments``.
+``torch`` and numpy only.
+
+The entry point is the reference's facade: ``repro_torch.run(spec)``
+takes an ``api.ExperimentSpec`` (the same JSON as ``repro.run``) and
+runs the bandit tier (``sim.engine.run_bandit_device``) or the training
+tier on a device env (``experiment.sweep.sweep_experiments``); the LM
+serve slice is ``launch.serve``. Entry points run on CUDA unless given
+``device="cpu"``.
 """
+
+
+def __getattr__(name: str):
+    # the facade, imported on first use so that ``import repro_torch``
+    # stays light
+    if name == "run":
+        from repro_torch.api import run
+        return run
+    if name == "api":
+        import importlib
+        return importlib.import_module("repro_torch.api")
+    raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")

@@ -1,0 +1,263 @@
+"""``repro_torch.run(spec) -> RunResult``: one entry point for the tiers
+the port has.
+
+The facade reads a declarative ``ExperimentSpec`` (the same JSON the
+reference's ``repro.run`` reads) and picks the engine by the
+reference's rules:
+
+    tier 1  bandit-only        no ``TrainSpec``: on a device env,
+                               ``sim.engine.run_bandit_device``
+    tier 4  device-env fused   training with a tensor policy on a device
+                               env: ``experiment.sweep.sweep_experiments``
+
+and returns per-seed metrics with their provenance: the resolved spec,
+the tier that ran, the env backend and the draw-schedule id. Backend
+resolution is the reference's: ``backend="auto"`` takes the device
+simulator exactly when the scenario exists only there.
+
+What the port does not have yet raises ``NotImplementedError`` naming
+its ROADMAP item, before any work, and never runs a substitute:
+
+  * a host env, tier 2 (host-state policies), tier 3 (training on a host
+    env), ``TrainSpec.transposed_gemm`` and ``run`` of an
+    ``ExperimentGrid``: queue A item 2;
+  * enabled faults, an enabled ``ObsSpec``, checkpoints, the health
+    guard, and an aggregator other than ``mean``: queue A item 3;
+  * a sharded layout (``ShardSpec`` or ``shard_seeds``) and the
+    ``metropolis-100k``/``-1m`` cohorts: queue A item 4.
+
+``device=None`` runs on CUDA and raises without a CUDA device; pass
+``device="cpu"`` for the plain PyTorch path. On CUDA every kernel
+launches, so ``use_kernel=False`` (the reference's plain route) is
+refused there; on the CPU the plain versions run whatever it says.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+
+from repro_torch.api.spec import (EnvSpec, ExperimentGrid, ExperimentSpec,
+                                  PolicySpec)
+
+# the reference's host scenarios (``repro.envs.SCENARIOS``) and its
+# device presets (``repro.sim.spec.PRESETS``), by name
+HOST_SCENARIOS = ("paper", "static-clients", "high-mobility",
+                  "tiered-pricing", "flash-crowd")
+MESH_PRESETS = ("metropolis-100k", "metropolis-1m")
+DEVICE_PRESETS = HOST_SCENARIOS + ("metropolis-1k", "bursty-arrival") \
+    + MESH_PRESETS
+
+
+@dataclass
+class RunResult:
+    """Structured result of one ``run``: metrics + provenance.
+
+    Leading axes: S seeds (in ``spec.seeds`` order), T rounds, E evals.
+    ``accuracy``/``loss``/``eval_rounds`` are None for bandit-only runs;
+    ``health`` and ``telemetry`` are always None here (the port has
+    neither yet), as is ``batched_axes`` empty.
+    """
+    spec: ExperimentSpec                 # resolved spec (provenance)
+    tier: int                            # 1 or 4
+    env_backend: str                     # "device"
+    draw_schedule: str                   # randomness-contract id
+    selections: np.ndarray               # (S, T, N) int32
+    utilities: np.ndarray                # (S, T)
+    participants: np.ndarray             # (S, T)
+    explored: np.ndarray                 # (S, T) bool
+    eval_rounds: Optional[np.ndarray] = None   # (E,) 1-based round ids
+    accuracy: Optional[np.ndarray] = None      # (S, E)
+    loss: Optional[np.ndarray] = None          # (S, E)
+    batched_axes: Tuple[str, ...] = ()
+    health: Optional[dict] = None
+    telemetry: Optional[dict] = None
+
+    def final_accuracy(self) -> np.ndarray:
+        if self.accuracy is None:
+            raise ValueError("bandit-only run: no accuracy recorded "
+                             "(add a TrainSpec)")
+        return self.accuracy[:, -1]
+
+    def cumulative_utility(self) -> np.ndarray:
+        return np.cumsum(self.utilities, axis=1)
+
+
+# -- spec resolution ---------------------------------------------------------
+
+
+def _device_only(scenario: str) -> bool:
+    return scenario in DEVICE_PRESETS and scenario not in HOST_SCENARIOS
+
+
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue "
+                               f"A item {item})")
+
+
+def resolve_config(env_spec: EnvSpec):
+    """The ``HFLExperimentConfig`` an ``EnvSpec`` implies (named config
+    or the scenario's default, then overrides and deadline)."""
+    from repro_torch.configs.paper_hfl import MNIST_CONVEX, get_config
+    from repro_torch.sim.spec import PRESETS
+
+    scen = env_spec.scenario.lower()
+    if env_spec.config is not None:
+        cfg = get_config(env_spec.config)
+    elif scen in PRESETS:
+        cfg = PRESETS[scen][0]
+    elif scen in MESH_PRESETS:
+        raise _not_ported(f"the {scen!r} cohort", 4)
+    else:
+        cfg = MNIST_CONVEX
+    if env_spec.overrides:
+        cfg = dataclasses.replace(cfg, **dict(env_spec.overrides))
+    if env_spec.deadline is not None:
+        cfg = dataclasses.replace(cfg, deadline_s=float(env_spec.deadline))
+    return cfg
+
+
+def _env_backend(env_spec: EnvSpec) -> str:
+    """``"device"`` or ``"host"``, by the reference's rule."""
+    scen = env_spec.scenario.lower()
+    use_device = (env_spec.backend == "device"
+                  or (env_spec.backend == "auto" and _device_only(scen)))
+    return "device" if use_device else "host"
+
+
+def _check_env(env_spec: EnvSpec, training: bool = False) -> None:
+    """A host env or a mesh cohort raises."""
+    scen = env_spec.scenario.lower()
+    if _env_backend(env_spec) == "host":
+        tier = ("training on a host env (tiers 2 and 3)" if training
+                else "a host env")
+        raise _not_ported(f"{tier}, scenario {scen!r} (give EnvSpec "
+                          "backend='device' for the device simulator)", 2)
+    if scen in MESH_PRESETS:
+        raise _not_ported(f"the {scen!r} cohort", 4)
+
+
+def build_env(env_spec: EnvSpec):
+    """EnvSpec -> ``sim.spec.DeviceEnv``; a host env raises."""
+    from repro_torch.sim import spec as simspec
+
+    _check_env(env_spec)
+    return simspec.make(env_spec.scenario.lower(),
+                        resolve_config(env_spec),
+                        mc_true_p=env_spec.mc_true_p,
+                        true_p=env_spec.true_p)
+
+
+def build_policy(policy_spec: PolicySpec, cfg, horizon: int):
+    """PolicySpec -> registry policy (the config's COCS knobs unless
+    ``options`` override them)."""
+    from repro_torch import policies
+    from repro_torch.core.utility import _policy_kwargs
+
+    pspec = policies.PolicySpec.from_experiment(
+        cfg, horizon, budget=policy_spec.budget)
+    kw = dict(_policy_kwargs(cfg, policy_spec.name.lower()))
+    kw.update(dict(policy_spec.options))
+    return policies.make(policy_spec.name, pspec, **kw)
+
+
+def select_tier(spec: ExperimentSpec, policy, env) -> int:
+    from repro_torch.sim.spec import DeviceEnv
+    if spec.train is None:
+        return 1
+    if not getattr(policy, "tensor_capable", False):
+        return 2
+    return 4 if isinstance(env, DeviceEnv) else 3
+
+
+def _refuse(spec: ExperimentSpec) -> None:
+    """Every part of a spec the port cannot run raises here, before any
+    work."""
+    faults = spec.env.faults
+    if faults is not None and faults.enabled:
+        raise _not_ported("fault injection (EnvSpec.faults)", 3)
+    if spec.obs.enabled:
+        raise _not_ported("observability (ObsSpec)", 3)
+    ev = spec.eval
+    if ev.checkpoint_dir is not None or ev.resume:
+        raise _not_ported("checkpoint and resume (EvalSpec)", 3)
+    if ev.health != "off":
+        raise _not_ported("the carry health guard (EvalSpec.health)", 3)
+    shard = spec.shard
+    if (shard is not None and (shard.clients > 1 or shard.seeds > 1)) \
+            or spec.shard_seeds:
+        raise _not_ported("the sharded cohort (ShardSpec, shard_seeds)", 4)
+    if spec.train is not None:
+        if spec.train.aggregator != "mean":
+            raise _not_ported(
+                f"the {spec.train.aggregator!r} aggregator", 3)
+        if spec.train.transposed_gemm:
+            raise _not_ported("the transposed logreg layout "
+                              "(TrainSpec.transposed_gemm)", 2)
+    _check_env(spec.env, training=spec.train is not None)
+
+
+# -- the facade --------------------------------------------------------------
+
+
+def run(spec, *, data=None, device=None) -> RunResult:
+    """Run one ``ExperimentSpec``.
+
+    ``data`` optionally supplies the ``FederatedDataset`` of a training
+    tier (default: synthetic data keyed on the model kind). ``device``
+    is the torch device: ``None`` means CUDA and raises without it."""
+    from repro_torch.experiment.sweep import sweep_experiments
+    from repro_torch.kernels.common import resolve_device
+    from repro_torch.sim.draws import SCHEDULE_ID
+    from repro_torch.sim.engine import run_bandit_device
+
+    if isinstance(spec, ExperimentGrid):
+        raise _not_ported("run of an ExperimentGrid (expand() gives its "
+                          "cells as specs)", 2)
+    if not isinstance(spec, ExperimentSpec):
+        raise TypeError("repro_torch.run expects an ExperimentSpec, got "
+                        f"{type(spec).__name__}")
+    _refuse(spec)
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        for what, sub in (("EnvSpec", spec.env), ("TrainSpec", spec.train)):
+            if sub is not None and sub.use_kernel is False:
+                raise ValueError(
+                    f"{what}.use_kernel=False asks for the plain route, "
+                    "which the port runs on the CPU only (device='cpu')")
+    env = build_env(spec.env)
+    policy = build_policy(spec.policy, env.cfg, spec.horizon)
+    tier = select_tier(spec, policy, env)
+    if tier in (2, 3):
+        raise _not_ported(f"tier {tier}", 2)
+    seeds = [int(s) for s in spec.seeds]
+    pol_seeds = [s + spec.policy.seed_offset for s in seeds]
+    common = dict(spec=spec, tier=tier, env_backend="device",
+                  draw_schedule=SCHEDULE_ID)
+    if tier == 1:
+        out = run_bandit_device(policy, env.spec, seeds, spec.horizon,
+                                policy_seeds=pol_seeds, device=dev)
+        return RunResult(**common, selections=out["selections"],
+                         utilities=out["utilities"],
+                         participants=out["participants"],
+                         explored=out["explored"])
+    name = spec.policy.name
+    res = sweep_experiments(
+        {name: policy}, env, seeds, spec.horizon,
+        model_kind=spec.train.model, batch_size=spec.train.batch_size,
+        batches_per_epoch=spec.train.batches_per_epoch,
+        eval_every=spec.eval.eval_every, data=data,
+        slots_per_es=spec.train.slots_per_es,
+        policy_seed_offset=spec.policy.seed_offset, device=dev)
+    return RunResult(**common, selections=res.selections[name],
+                     utilities=res.utilities[name],
+                     participants=res.participants[name],
+                     explored=res.explored[name],
+                     eval_rounds=np.asarray(res.eval_rounds),
+                     accuracy=res.accuracy[name], loss=res.loss[name])
+
+
+__all__ = ["RunResult", "build_env", "build_policy", "resolve_config",
+           "run", "select_tier"]

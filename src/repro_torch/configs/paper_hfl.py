@@ -78,3 +78,11 @@ CIFAR10_NONCONVEX = HFLExperimentConfig(
 
 CONFIGS = {c.name: c for c in (MNIST_CONVEX, CIFAR10_NONCONVEX,
                                METROPOLIS_1K, BURSTY_1K)}
+
+
+def get_config(name: str) -> HFLExperimentConfig:
+    key = name.lower()
+    if key not in CONFIGS:
+        raise KeyError(f"unknown experiment config {name!r}; available: "
+                       f"{tuple(sorted(CONFIGS))}")
+    return CONFIGS[key]

@@ -5,27 +5,27 @@ Every seed gets its own realized environment (``sim``), model init
 (``PRNGKey(seed)``; logreg starts at zero), sampler stream
 (``PRNGKey(seed + 11)``) and policy state, over one shared dataset
 (``seed=0``), as the reference's ``sweep_experiments``; the seed axis is
-a batch dimension throughout. Policies: ``cocs``, ``oracle``, ``random``;
-models: ``logreg`` (784-d "mnist" data) and ``cnn`` (32x32x3 "cifar"
-data).
+a batch dimension throughout. Policies: ``cocs``, ``oracle``, ``random``
+(by registry name, or built, as a dict name -> policy); models:
+``logreg`` (784-d "mnist" data) and ``cnn`` (32x32x3 "cifar" data).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, NamedTuple, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from repro_torch import policies as registry
 from repro_torch import random as jr
+from repro_torch.core.utility import _policy_kwargs
 from repro_torch.data.federated import FederatedDataset, StackedClients
 from repro_torch.experiment.fused import block_device
 from repro_torch.fed.batched import BatchedRoundSpec
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.logistic import init_cnn, init_logreg
 from repro_torch.policies.base import FunctionalPolicy, PolicySpec
-from repro_torch.policies.baselines import Oracle, Random
-from repro_torch.policies.cocs import COCS
 from repro_torch.sim import spec as simspec
 from repro_torch.sim.core import init_statics
 
@@ -109,38 +109,33 @@ def prepare_training(cfg, model_kind: str, batch_size: int,
         test_y=torch.as_tensor(data.test_y, device=device))
 
 
-POLICIES = ("cocs", "oracle", "random")
-
-
 def _make_policies(policies: Sequence[str], cfg, horizon
                    ) -> Dict[str, FunctionalPolicy]:
     """Registry names -> policies, COCS with the config's knobs (as the
     reference's ``_policy_kwargs``)."""
     spec = PolicySpec.from_experiment(cfg, horizon)
-    out = {}
-    for name in policies:
-        key = name.lower()
-        if key == "cocs":
-            out[name] = COCS(spec=spec, alpha=cfg.holder_alpha, h_t=cfg.h_t)
-        elif key == "oracle":
-            out[name] = Oracle(spec=spec)
-        elif key == "random":
-            out[name] = Random(spec=spec)
-        else:
-            raise KeyError(f"unknown policy {name!r}; the port has "
-                           f"{POLICIES}")
-    return out
+    return {name: registry.make(name, spec,
+                                **_policy_kwargs(cfg, name.lower()))
+            for name in policies}
 
 
-def sweep_experiments(policies: Sequence[str], env,
-                      seeds: Sequence[int], horizon: int, *,
+def sweep_experiments(policies: Union[Sequence[str],
+                                      Dict[str, FunctionalPolicy]],
+                      env, seeds: Sequence[int], horizon: int, *,
                       model_kind: str = "logreg", batch_size: int = 32,
                       batches_per_epoch: int = 2, eval_every: int = 5,
                       data: Optional[FederatedDataset] = None,
                       slots_per_es: Optional[int] = None,
+                      policy_seed_offset: int = 0,
                       device=None) -> SweepResult:
     """Run every policy for every seed over ``horizon`` training rounds
     on a device environment (``"device:<preset>"``).
+
+    ``policies`` is a list of registry names (COCS with the config's
+    knobs) or a dict name -> ``FunctionalPolicy``.
+    ``policy_seed_offset`` shifts the policy init seeds from the env
+    seeds (``core.utility.POLICY_TABLE``'s offsets); the env, model and
+    sampler streams stay keyed on the env seeds.
 
     ``device=None`` runs on CUDA and raises without a CUDA device; pass
     ``device="cpu"`` for the plain PyTorch path. ``slots_per_es`` pins
@@ -150,7 +145,9 @@ def sweep_experiments(policies: Sequence[str], env,
     env = simspec.resolve(env)
     cfg = env.cfg
     seeds = [int(x) for x in seeds]
-    pols = _make_policies(policies, cfg, horizon)
+    pols = (dict(policies) if isinstance(policies, dict)
+            else _make_policies(policies, cfg, horizon))
+    pol_seeds = [x + int(policy_seed_offset) for x in seeds]
     setup = prepare_training(cfg, model_kind, batch_size,
                              batches_per_epoch, data, seeds, dev)
     seed_t = torch.as_tensor(seeds, dtype=torch.int64, device=dev)
@@ -161,7 +158,7 @@ def sweep_experiments(policies: Sequence[str], env,
                          utilities={}, participants={}, selections={},
                          explored={})
     for name, pol in pols.items():
-        pstate = pol.init(len(seeds), dev, seeds)
+        pstate = pol.init(len(seeds), dev, pol_seeds)
         edge = {k: v.clone() for k, v in setup.edge_seed.items()}
         pos = statics.pos0.clone()
         outs, lo = [], 0

@@ -7,13 +7,17 @@
 
 Every tensor carries a leading seed axis ``S``: one call selects for
 all seeds at once (the reference ``vmap``s the same functions).
+``select_with_budgets`` takes the per-ES budgets as an (S, M) tensor,
+one row per batch element: the grid engines batch budget cells next to
+the seeds that way (``policies.engine``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, ClassVar, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.configs.paper_hfl import HFLExperimentConfig
 
@@ -27,6 +31,29 @@ class Round(NamedTuple):
     outcomes: Any     # (S, N, M)
     true_p: Any       # (S, N, M)
     latency: Any      # (S, N, M) realized tau
+
+
+def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
+    if not isinstance(a, torch.Tensor):
+        a = torch.as_tensor(np.asarray(a))
+    return a.to(device=device, dtype=dtype)
+
+
+_ROUND_DTYPES = (torch.int32, torch.float32, torch.bool, torch.float32,
+                 torch.float32, torch.float32, torch.float32)
+
+
+def round_from_arrays(fields: Sequence[Any], device=None) -> Round:
+    """A ``Round`` of tensors from any stacked batch of arrays in the
+    reference's field order (``t, contexts, eligible, costs, outcomes,
+    true_p, latency``), with leading axes such as (T, ...) or (S, T, ...):
+    numpy arrays, the reference's ``Round`` or the port's own."""
+    fields = tuple(fields)
+    if len(fields) != len(Round._fields):
+        raise ValueError(f"a round has {len(Round._fields)} fields "
+                         f"{Round._fields}, got {len(fields)}")
+    return Round(*(_tensor(f, dt, device)
+                   for f, dt in zip(fields, _ROUND_DTYPES)))
 
 
 @dataclass(frozen=True)
@@ -50,13 +77,21 @@ class PolicySpec:
     def budgets(self) -> np.ndarray:
         return np.full(self.num_edge_servers, self.budget, np.float32)
 
+    def budgets_like(self, costs: torch.Tensor) -> torch.Tensor:
+        """The spec's budgets as an (S, M) tensor beside ``costs`` (S, N)."""
+        return torch.as_tensor(self.budgets(), device=costs.device).expand(
+            costs.shape[0], self.num_edge_servers)
+
 
 @dataclass(frozen=True)
 class FunctionalPolicy:
-    """Base for policies: frozen, hashable, pure functions of tensors."""
+    """Base for policies: frozen, hashable, pure functions of tensors.
+    ``tensor_capable`` marks the policies whose select and update are
+    tensor functions that the engines can drive (all of the port's)."""
     spec: PolicySpec
 
     name: str = "base"
+    tensor_capable: ClassVar[bool] = False
 
     def init(self, num_seeds: int, device=None, seeds=None):
         """The state for ``num_seeds`` seeds; a policy that draws keys
@@ -64,7 +99,14 @@ class FunctionalPolicy:
         raise NotImplementedError
 
     def select(self, state, rd: Round) -> Tuple[Any, Any]:
-        raise NotImplementedError
+        return self.select_with_budgets(
+            state, rd, self.spec.budgets_like(rd.costs))
+
+    def select_with_budgets(self, state, rd: Round, budgets: torch.Tensor
+                            ) -> Tuple[Any, Any]:
+        """``select`` under per-element budgets (S, M) float32."""
+        raise NotImplementedError(
+            f"{self.name} does not take per-call budgets")
 
     def update(self, state, rd: Round, assign, aux=None):
         return state

@@ -11,7 +11,7 @@ as every policy of the port.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import NamedTuple
+from typing import ClassVar, NamedTuple
 
 import torch
 
@@ -29,14 +29,14 @@ class KeyState(NamedTuple):
 class Oracle(FunctionalPolicy):
     """Knows the realized per-round outcomes X (upper bound)."""
     name: str = field(default="Oracle")
+    tensor_capable: ClassVar[bool] = True
 
     def init(self, num_seeds: int, device=None, seeds=None) -> None:
         return None                    # it needs no state
 
-    def select(self, state, rd: Round):
+    def select_with_budgets(self, state, rd: Round, budgets: torch.Tensor):
         values = rd.outcomes.to(torch.float32)
         costs = rd.costs.to(torch.float32)
-        budgets = torch.as_tensor(self.spec.budgets(), device=values.device)
         solve = flgreedy_assign if self.spec.sqrt_utility else greedy_assign
         return solve(values, costs, budgets, rd.eligible), {}
 
@@ -46,15 +46,15 @@ class Random(FunctionalPolicy):
     """Feasible random assignment; the round's key is ``fold_in(key, t)``,
     so select is pure and the state never changes."""
     name: str = field(default="Random")
+    tensor_capable: ClassVar[bool] = True
 
     def init(self, num_seeds: int, device=None, seeds=None) -> KeyState:
         """``PRNGKey(seed)`` per seed (default seeds ``0 .. S-1``)."""
         seeds = list(range(num_seeds)) if seeds is None else list(seeds)
         return KeyState(key=jr.PRNGKey(torch.as_tensor(seeds), device))
 
-    def select(self, state: KeyState, rd: Round):
+    def select_with_budgets(self, state: KeyState, rd: Round,
+                            budgets: torch.Tensor):
         key = jr.fold_in(state.key, rd.t)
-        budgets = torch.as_tensor(self.spec.budgets(),
-                                  device=rd.costs.device)
         return random_assign(key, rd.costs.to(torch.float32), budgets,
                              rd.eligible), {}

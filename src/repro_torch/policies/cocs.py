@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import NamedTuple, Optional, Tuple
+from typing import ClassVar, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -39,6 +39,10 @@ class COCSState(NamedTuple):
     p_hat: torch.Tensor        # (S, N, M, h, h) float32
 
 
+HParam = Union[int, torch.Tensor]
+ZParam = Union[float, torch.Tensor]
+
+
 @dataclass(frozen=True)
 class COCS(FunctionalPolicy):
     """Index-mode COCS: P2's density greedy, or P3's FLGreedy when the
@@ -47,53 +51,73 @@ class COCS(FunctionalPolicy):
     h_t: Optional[int] = None
 
     name: str = field(default="COCS")
+    tensor_capable: ClassVar[bool] = True
 
     def _params(self) -> Tuple[float, int]:
         z, h_thm = theorem2_params(self.spec.horizon, self.alpha)
         return z, (self.h_t if self.h_t is not None else h_thm)
 
+    # ``h`` (the hypercube resolution) and ``z`` (Theorem 2's exponent)
+    # enter select and update as data: Python numbers for one
+    # configuration, or (S,) tensors, one value a batch element, over a
+    # state padded to a shared ``h_pad`` lattice (the grid engines' h_t
+    # and alpha axes). The lattice stride is always the state's ``h_pad``
+    # and cube indices stop at each element's own ``h - 1``, so padded
+    # cells stay zero and each element equals its unpadded run bitwise.
+
     def init(self, num_seeds: int, device=None, seeds=None) -> COCSState:
         _, h = self._params()
+        return self.init_padded(num_seeds, h, device)
+
+    def init_padded(self, num_seeds: int, h_pad: int, device=None
+                    ) -> COCSState:
+        """Zero state over an (S, N, M, h_pad, h_pad) lattice."""
         shape = (num_seeds, self.spec.num_clients,
-                 self.spec.num_edge_servers, h, h)
+                 self.spec.num_edge_servers, h_pad, h_pad)
         return COCSState(
             counters=torch.zeros(shape, dtype=torch.int32, device=device),
             p_hat=torch.zeros(shape, dtype=torch.float32, device=device))
 
-    def _cubes(self, contexts: torch.Tensor, h: int) -> torch.Tensor:
+    def _cubes(self, contexts: torch.Tensor, h: HParam) -> torch.Tensor:
+        if isinstance(h, torch.Tensor):          # one h a batch element
+            h = h.view(-1, 1, 1, 1)
+            idx = torch.floor(torch.nan_to_num(contexts) * h).to(torch.int32)
+            return torch.minimum(torch.clamp(idx, min=0), h - 1)
         idx = torch.floor(torch.nan_to_num(contexts) * h).to(torch.int32)
         return torch.clamp(idx, 0, h - 1)
 
     @staticmethod
-    def _cell(cubes: torch.Tensor, j: torch.Tensor, h: int, m: int
+    def _cell(cubes: torch.Tensor, j: torch.Tensor, h_pad: int, m: int
               ) -> torch.Tensor:
-        """Flat (client, ES, cube) cell index into (S, N*M*h*h)."""
+        """Flat (client, ES, cube) cell index into (S, N*M*h_pad*h_pad)."""
         n = cubes.shape[1]
         i = torch.arange(n, device=cubes.device).view(1, n,
                                                       *([1] * (j.dim() - 2)))
         c0, c1 = cubes[..., 0].long(), cubes[..., 1].long()
-        return ((i * m + j) * h + c0) * h + c1
+        return ((i * m + j) * h_pad + c0) * h_pad + c1
 
-    def _gather(self, arr: torch.Tensor, cubes: torch.Tensor, h: int
+    def _gather(self, arr: torch.Tensor, cubes: torch.Tensor
                 ) -> torch.Tensor:
         s, n, m = cubes.shape[:3]
         j = torch.arange(m, device=cubes.device).view(1, 1, m)
-        cell = self._cell(cubes, j, h, m)
+        cell = self._cell(cubes, j, arr.shape[-1], m)
         return torch.gather(arr.reshape(s, -1), 1,
                             cell.reshape(s, -1)).reshape(s, n, m)
 
-    def k_of_t(self, t: torch.Tensor, z: float) -> torch.Tensor:
+    def k_of_t(self, t: torch.Tensor, z: ZParam) -> torch.Tensor:
         tf = torch.clamp(t.to(torch.float32), min=1.0)
         return K_SCALE * tf ** z * torch.log(torch.clamp(tf, min=2.0))
 
-    def pair_values(self, state: COCSState, rd: Round
+    def pair_values(self, state: COCSState, rd: Round, h: HParam = None,
+                    z: ZParam = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The optimistic score table the greedy solver gets, as
         ``(values, under)`` (both (S, N, M))."""
-        z, h = self._params()
+        if h is None or z is None:
+            z, h = self._params()
         cubes = self._cubes(rd.contexts, h)
-        counts = self._gather(state.counters, cubes, h)
-        est = self._gather(state.p_hat, cubes, h)
+        counts = self._gather(state.counters, cubes)
+        est = self._gather(state.p_hat, cubes)
         t1 = rd.t.to(torch.int32) + 1
         under = rd.eligible & (counts <= self.k_of_t(t1, z)[:, None, None])
         tf = torch.clamp(t1.to(torch.float32), min=2.0)
@@ -104,9 +128,16 @@ class COCS(FunctionalPolicy):
                                  torch.clamp(est + bonus, max=1.0))
         return torch.where(under, optimistic, est), under
 
-    def select(self, state: COCSState, rd: Round):
-        values, under = self.pair_values(state, rd)
-        budgets = torch.as_tensor(self.spec.budgets(), device=values.device)
+    def select_with_budgets(self, state: COCSState, rd: Round,
+                            budgets: torch.Tensor):
+        z, h = self._params()
+        return self.select_with_params(state, rd, budgets, h, z)
+
+    def select_with_params(self, state: COCSState, rd: Round,
+                           budgets: torch.Tensor, h: HParam, z: ZParam):
+        """``select_with_budgets`` with ``h`` and ``z`` given: numbers, or
+        (S,) int32 and float32 tensors over an ``init_padded`` state."""
+        values, under = self.pair_values(state, rd, h, z)
         solve = flgreedy_assign if self.spec.sqrt_utility else greedy_assign
         assign = solve(values, rd.costs.to(values.dtype), budgets,
                        rd.eligible)
@@ -114,10 +145,13 @@ class COCS(FunctionalPolicy):
 
     def update(self, state: COCSState, rd: Round, assign: torch.Tensor,
                aux=None) -> COCSState:
-        del aux
         _, h = self._params()
+        return self.update_with_params(state, rd, assign, h)
+
+    def update_with_params(self, state: COCSState, rd: Round,
+                           assign: torch.Tensor, h: HParam) -> COCSState:
         counters, p_hat = state
-        s, n, m = counters.shape[:3]
+        s, n, m, h_pad = counters.shape[:4]
         cubes = self._cubes(rd.contexts, h)
         assign = assign.long()
         sel = assign >= 0
@@ -125,7 +159,8 @@ class COCS(FunctionalPolicy):
         ab = torch.gather(cubes, 2, j[:, :, None, None].expand(s, n, 1, 2)
                           )[:, :, 0]                       # (S, N, 2)
         i = torch.arange(n, device=j.device)[None]
-        cell = ((i * m + j) * h + ab[..., 0].long()) * h + ab[..., 1].long()
+        cell = (((i * m + j) * h_pad + ab[..., 0].long()) * h_pad
+                + ab[..., 1].long())
         x = torch.gather(rd.outcomes.to(p_hat.dtype), 2,
                          j[..., None])[..., 0]
         cflat, pflat = counters.reshape(s, -1), p_hat.reshape(s, -1)

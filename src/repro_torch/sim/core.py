@@ -5,12 +5,13 @@ One round mirrors the reference's ``sim_round`` stage for stage:
 mobility update, client-ES association (with the stranded-client fix),
 the fused Eq. 4/5 pairwise stage (``kernels.context_pairwise``: one CUDA
 launch for all seeds), Eq. 6 deadline outcomes, tiered costs, flash-crowd
-surge pricing, bursty availability, context normalization and the
-Monte-Carlo ``true_p``. It consumes the same counter-based draws
-(``sim.draws``) and repeats the float32 arithmetic as the reference
-executes it under ``jit`` (``core.fmath``), so a round matches the
-reference pointwise: costs and positions bitwise, the transcendental
-stages to a few ulp.
+surge pricing, bursty availability, context normalization and
+``true_p``: the Monte-Carlo estimate, or the analytic Eq. 6 integral
+(``sim.truep``), which draws no fading pairs. It consumes the same
+counter-based draws (``sim.draws``) and repeats the float32 arithmetic
+as the reference executes it under ``jit`` (``core.fmath``), so a round
+matches the reference pointwise: costs and positions bitwise, the
+transcendental stages to a few ulp.
 
 Every function takes a leading seed axis ``S`` on its per-client tensors
 (the reference's ``vmap``); ``seeds`` is an int tensor ``(S,)``.
@@ -28,6 +29,7 @@ from repro_torch.kernels.context_pairwise.ref import latency
 from repro_torch.policies.base import Round
 from repro_torch.sim import draws
 from repro_torch.sim.spec import SimSpec
+from repro_torch.sim.truep import analytic_true_p
 
 
 class SimStatics(NamedTuple):
@@ -97,8 +99,12 @@ def sim_round(spec: SimSpec, seeds: torch.Tensor, statics: SimStatics,
     reference's ``round_draws`` through it)."""
     n, m = pos.shape[-2], spec.num_edge_servers
     dev = pos.device
+    analytic = spec.true_p == "analytic"
     if dr is None:
-        dr = draws.round_draws(seeds, t, n, m, spec.mc_true_p, dev)
+        # the analytic mode draws no Monte-Carlo pairs; draws are
+        # addressed by tag, so no other stream moves
+        dr = draws.round_draws(seeds, t, n, m,
+                               0 if analytic else spec.mc_true_p, dev)
     pos = torch.clamp(fma(spec.mobility, dr.move, pos), -spec.area,
                       spec.area)
     bandwidth = torch.clamp(statics.base_bw * fma(spec.jitter, dr.bw_n, 1.0),
@@ -133,13 +139,21 @@ def sim_round(spec: SimSpec, seeds: torch.Tensor, statics: SimStatics,
                        spec.compute_high - spec.compute_low)
     contexts = torch.stack(
         [phi_rate, phi_comp[..., None].expand_as(phi_rate)], dim=-1)
-    tau_mc = latency(bandwidth[..., None, :, None],
-                     compute[..., None, :, None], dr.mc_dt, dr.mc_ut,
-                     g0[..., None, :, :], tx_w=spec.tx_w,
-                     noise_psd_w=spec.noise_psd_w,
-                     update_bits=spec.update_bits, workload=spec.workload)
-    # a mean of 0/1 values over K: exact in float32 in any order
-    true_p = (tau_mc <= spec.deadline_s).to(torch.float32).mean(dim=-3)
+    if analytic:
+        true_p = analytic_true_p(
+            bandwidth[..., None], compute[..., None], g0, tx_w=spec.tx_w,
+            noise_psd_w=spec.noise_psd_w, update_bits=spec.update_bits,
+            workload=spec.workload, deadline_s=spec.deadline_s)
+    else:
+        tau_mc = latency(bandwidth[..., None, :, None],
+                         compute[..., None, :, None], dr.mc_dt, dr.mc_ut,
+                         g0[..., None, :, :], tx_w=spec.tx_w,
+                         noise_psd_w=spec.noise_psd_w,
+                         update_bits=spec.update_bits,
+                         workload=spec.workload)
+        # a mean of 0/1 values over K: exact in float32 in any order
+        true_p = (tau_mc <= spec.deadline_s).to(torch.float32).mean(
+            dim=-3)
     t_arr = torch.full(pos.shape[:-2], int(t), dtype=torch.int32,
                        device=dev)
     rd = Round(t=t_arr, contexts=contexts, eligible=eligible, costs=costs,

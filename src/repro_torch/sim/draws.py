@@ -69,14 +69,22 @@ def init_draws(seed, n: int, device=None) -> InitDraws:
 
 def round_draws(seed, t, n: int, m: int, k_mc: int,
                 device=None) -> RoundDraws:
+    """The round's draws. ``k_mc = 0`` (analytic ``true_p``) makes no
+    Monte-Carlo draw at all: its two fields are empty tensors, and the
+    threefry ops of a draw of size 0 are not dispatched."""
     k = round_key(seed, t, device)
     sub = lambda tag: jr.fold_in(k, tag)
+    if k_mc > 0:
+        mc = lambda tag: jr.exponential(sub(tag), (k_mc, n, m))
+    else:
+        mc = lambda tag: torch.empty(k.shape[:-1] + (0, n, m),
+                                     dtype=torch.float32, device=k.device)
     return RoundDraws(
         move=jr.normal(sub(_MOVE), (n, 2)),
         bw_n=jr.normal(sub(_BWJ), (n,)),
         comp_n=jr.normal(sub(_COMPJ), (n,)),
         fad_dt=jr.exponential(sub(_FDT), (n, m)),
         fad_ut=jr.exponential(sub(_FUT), (n, m)),
-        mc_dt=jr.exponential(sub(_MCDT), (k_mc, n, m)),
-        mc_ut=jr.exponential(sub(_MCUT), (k_mc, n, m)),
+        mc_dt=mc(_MCDT),
+        mc_ut=mc(_MCUT),
     )

@@ -92,7 +92,11 @@ class SimSpec:
     surge_discount: float = 0.3
     arrival_period: int = 0
     arrival_len: int = 1
-    mc_true_p: int = 128        # Monte-Carlo fading pairs behind true_p
+    # the ground-truth participation probability: "mc" (the mean over
+    # mc_true_p fading pairs) or "analytic" (the exact Eq. 6 integral,
+    # sim.truep; no fading-pair draws)
+    true_p: str = "mc"
+    mc_true_p: int = 128
 
     def min_cost(self) -> float:
         """Analytic lower bound on any realized per-client cost:
@@ -106,10 +110,13 @@ class SimSpec:
         return cost
 
     @classmethod
-    def from_env(cls, cfg: HFLExperimentConfig, scen: ScenarioSpec
-                 ) -> "SimSpec":
-        """``true_p`` is the Monte-Carlo estimate; the analytic Eq. 6
-        integral is not ported yet (ROADMAP, queue A)."""
+    def from_env(cls, cfg: HFLExperimentConfig, scen: ScenarioSpec,
+                 mc_true_p: int = 128, true_p: str = "mc") -> "SimSpec":
+        """The spec of ``cfg`` under ``scen``. ``true_p`` is ``"mc"``
+        (the Monte-Carlo estimate over ``mc_true_p`` fading pairs) or
+        ``"analytic"`` (the Eq. 6 integral, ``sim.truep``)."""
+        if true_p not in ("mc", "analytic"):
+            raise ValueError(f"unknown true_p mode {true_p!r}")
         tiers = scen.price_tiers
         return cls(
             num_clients=cfg.num_clients,
@@ -137,7 +144,8 @@ class SimSpec:
             arrival_period=scen.arrival_period,
             arrival_len=(max(1, int(round(scen.arrival_duty
                                           * scen.arrival_period)))
-                         if scen.arrival_period > 0 else 1))
+                         if scen.arrival_period > 0 else 1),
+            true_p=true_p, mc_true_p=mc_true_p)
 
 
 METROPOLIS_SCEN = ScenarioSpec(name="metropolis-1k", mobility=0.3,
@@ -167,14 +175,16 @@ class DeviceEnv(NamedTuple):
     spec: SimSpec
 
 
-def make(name: str = "paper", cfg: Optional[HFLExperimentConfig] = None
-         ) -> DeviceEnv:
+def make(name: str = "paper", cfg: Optional[HFLExperimentConfig] = None,
+         mc_true_p: int = 128, true_p: str = "mc") -> DeviceEnv:
     """A preset's device environment; ``cfg`` replaces its experiment
-    config (``make("paper", CIFAR10_NONCONVEX)``), as the reference's
-    ``sim.make``."""
+    config (``make("paper", CIFAR10_NONCONVEX)``) and ``true_p`` picks
+    the participation estimator (``"mc"`` or ``"analytic"``), as the
+    reference's ``sim.make``."""
     pcfg, scen = preset(name)
     cfg = pcfg if cfg is None else cfg
-    return DeviceEnv(cfg, scen, SimSpec.from_env(cfg, scen))
+    return DeviceEnv(cfg, scen, SimSpec.from_env(cfg, scen, mc_true_p,
+                                                 true_p))
 
 
 def resolve(env) -> DeviceEnv:

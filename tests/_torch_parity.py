@@ -4,6 +4,7 @@ PyTorch port, and the outputs come back as numpy for comparison."""
 from __future__ import annotations
 
 import numpy as np
+import pytest
 import torch
 
 # normal draws: XLA's erf_inv polynomial is ported op for op, but its
@@ -18,6 +19,20 @@ GUMBEL_MAX_ULP1 = 3
 # env tensors (gain, rate, tau, contexts): one ulp of log/log1p moves
 # the path loss by an ulp of a ~150 dB number, 3.5e-6 relative in gain
 ENV_RTOL = 5e-6
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One PyTorch intra-op thread while a module's tests run. The suite
+    runs several worker processes at once, and a thread pool sized to
+    every core in each of them oversubscribes the machine: small tensor
+    ops then wait on spinning threads (a six-worker run of the bandit
+    tests took 50x their serial time). The tests' tensors are small and
+    gain nothing from the pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def np_(x) -> np.ndarray:
