@@ -134,8 +134,23 @@ Phases, in order; any failure exits non-zero before a result is printed:
     Rounds/s per policy and mode, cumulative utility and regret against
     the Oracle are printed, not gated; ``--profile`` adds ``round.env``
     and ``round.select`` host ms for 5 COCS rounds in each mode.
+16. the paper's panels as written (``repro/trials/suites.py``, copied
+    here as specs) on the host env through ``repro_torch.run``:
+    paper-fig3 (400 rounds, seed 1, the five policies with
+    ``POLICY_TABLE``'s offsets), B2 launched 400 times for COCS and for
+    the Oracle, Random's scan 400 times, no kernel for CUCB and LinUCB,
+    no walk host sync, every (round, ES) spend within budget, the order
+    Oracle > COCS > {CUCB, LinUCB, Random} of the cumulative utilities
+    (printed beside the suite's committed ``BENCH_quick.json`` rows,
+    not gated on them); paper-fig4-quick (40 rounds, ``eval_every`` 5,
+    budgets 3.5 and 5.0, the five policies) through ``run(grid)``: the
+    batched cells equal to each cell's sequential run in selections,
+    B3 launched once a round in every tier-2 and tier-3 run, accuracy
+    finite; its @smoke variant on the CPU and on CUDA, selections
+    identical, accuracy within 1e-3. The host rollout's seconds and
+    each run's rounds/s are printed.
 
-Phases 4, 8, 9, 10, 13, 14 and 15 each zero the launch counts just
+Phases 4, 8, 9, 10, 13, 14, 15 and 16 each zero the launch counts just
 before their run and read them just after.
 
 The last three lines are the card's name and power limit, a JSON line
@@ -2464,6 +2479,198 @@ def bandit_tier(dev, profile: bool = False):
     return out
 
 
+# -- phase 16: the paper's panels as written ----------------------------------
+
+# repro/trials/suites.py's paper-fig3 and paper-fig4-quick, as specs: the
+# host env (scenario "paper", backend "auto"), POLICY_TABLE's five
+# policies and seed offsets, fig4's budget axis and both @smoke variants
+FIG4_BUDGETS = (3.5, 5.0)
+# the suite's committed fig3a_cumulative_utility_* rows (BENCH_quick.json,
+# taken with the reference on an older jax: printed beside the port's,
+# not gated, as the draws depend on jax's version)
+FIG3_COMMITTED = {"Oracle": 4353, "COCS": 3559, "CUCB": 1414,
+                  "LinUCB": 2356, "Random": 2316}
+# the kernels each panel policy launches once a round (host policies none)
+PANEL_KERNELS = {"Oracle": ("budgeted_topk",), "COCS": ("budgeted_topk",),
+                 "CUCB": (), "LinUCB": (), "Random": ("random_assign",)}
+PANEL_KERNEL_NAMES = ("context_pairwise", "budgeted_topk", "random_assign",
+                      "flgreedy_walk", "masked_aggregate")
+
+
+def panel_specs(smoke: bool = False):
+    """{display: spec} of paper-fig3 and of paper-fig4-quick (a grid)."""
+    import dataclasses
+    from repro_torch import api
+    from repro_torch.core.utility import POLICY_TABLE
+    fig3 = api.ExperimentSpec(
+        env=api.EnvSpec(scenario="paper", config="mnist-convex"),
+        horizon=60 if smoke else 400, seeds=(1,))
+    fig4 = api.ExperimentSpec(
+        env=api.EnvSpec(scenario="paper", config="mnist-convex",
+                        overrides=(("lr", 0.01),)),
+        train=api.TrainSpec(model="logreg"),
+        eval=api.EvalSpec(eval_every=6 if smoke else 5),
+        horizon=12 if smoke else 40, seeds=(0,))
+    pols = {d: api.PolicySpec(name=reg, seed_offset=off)
+            for d, (reg, off) in POLICY_TABLE.items()}
+    return ({d: dataclasses.replace(fig3, policy=p) for d, p in pols.items()},
+            {d: dataclasses.replace(fig4, policy=p).grid(
+                budget=list(FIG4_BUDGETS)) for d, p in pols.items()})
+
+
+def panel_budget_check(rounds, sel, budget, what):
+    """Every (round, ES) spend of ``sel`` (T, N) within ``budget`` on the
+    host env's realized costs, every pair eligible. Returns the largest
+    spend."""
+    import numpy as np
+    worst = 0.0
+    for t, rd in enumerate(rounds):
+        a = sel[t]
+        chosen = np.nonzero(a >= 0)[0]
+        if not rd.eligible[chosen, a[chosen]].all():
+            fail(f"{what}: round {t}: an ineligible pair selected")
+        spend = np.bincount(a[chosen], weights=rd.costs[chosen],
+                            minlength=rd.eligible.shape[1])
+        worst = max(worst, float(spend.max()))
+        if (spend > budget + 1e-6).any():
+            fail(f"{what}: round {t}: ES spend {spend.max()} over budget "
+                 f"{budget}")
+    return worst
+
+
+def panel_launches_ok(launches, syncs, display, rounds, what):
+    """Each selection kernel once a round for ``rounds`` rounds (none for
+    a host policy), B1 never (the host env is numpy), no walk sync."""
+    for k in PANEL_KERNEL_NAMES:
+        want = rounds if k in PANEL_KERNELS[display] else 0
+        if k != "masked_aggregate" and launches[k] != want:
+            fail(f"{what}: {k} launched {launches[k]} times, expected "
+                 f"{want}")
+    if any(syncs.values()):
+        fail(f"{what}: a selection walk synced with the host: {syncs}")
+
+
+def paper_panels(dev):
+    """Phase 16: paper-fig3 and paper-fig4-quick as written, on the host
+    env, through ``repro_torch.run`` on the card."""
+    import numpy as np
+    import repro_torch
+    from repro_torch.api.run import build_env, cached_rollout
+    t_phase = time.perf_counter()
+    out = {"fig3": {}, "fig4": {}, "fig4_smoke": {}}
+    fig3, fig4 = panel_specs()
+
+    # the host rollout, timed alone: the five fig3 runs share it (cache)
+    spec0 = next(iter(fig3.values()))
+    env = build_env(spec0.env)
+    t0 = time.perf_counter()
+    rounds = cached_rollout(env, spec0.seeds[0], spec0.horizon)
+    roll_s = time.perf_counter() - t0
+    out["fig3_rollout_s"] = roll_s
+    print(f"  host rollout, paper, seed {spec0.seeds[0]}, {spec0.horizon} "
+          f"rounds (float64 numpy, mc true_p, the CPU): {roll_s:.3f} s = "
+          f"{spec0.horizon / roll_s:.1f} rounds/s")
+    cum = {}
+    for display, spec in fig3.items():
+        res, wall, launches, syncs = counted(
+            lambda: repro_torch.run(spec, device=dev))
+        what = f"paper-fig3 {display}"
+        if (res.tier, res.env_backend) != (1, "host"):
+            fail(f"{what}: tier {res.tier}, {res.env_backend} env")
+        panel_launches_ok(launches, syncs, display, spec.horizon, what)
+        if launches["masked_aggregate"]:
+            fail(f"{what}: masked_aggregate launched without training")
+        worst = panel_budget_check(rounds, res.selections[0],
+                                   env.cfg.budget, what)
+        cum[display] = float(res.utilities.sum())
+        rps = spec.horizon / wall
+        out["fig3"][display] = dict(cumulative_utility=cum[display],
+                                    rounds_per_s=rps, max_spend=worst,
+                                    launches={k: v for k, v in
+                                              launches.items() if v})
+        print(f"  fig3 {display}: {spec.horizon} rounds in {wall:.3f} s = "
+              f"{rps:.1f} rounds/s; launches "
+              f"{ {k: v for k, v in launches.items() if v} }; max ES spend "
+              f"{worst:.6f} <= {env.cfg.budget}")
+    for display in fig3:
+        reg = cum["Oracle"] - cum[display]
+        out["fig3"][display]["regret"] = reg
+        print(f"  fig3 {display}: cumulative utility {cum[display]:.0f}, "
+              f"regret against the Oracle {reg:.0f} (the suite's committed "
+              f"row {FIG3_COMMITTED[display]}, not gated)")
+    rest = max(cum[d] for d in ("CUCB", "LinUCB", "Random"))
+    if not cum["Oracle"] > cum["COCS"] > rest:
+        fail(f"paper-fig3: cumulative utilities {cum} are not ordered "
+             f"Oracle > COCS > CUCB, LinUCB, Random")
+
+    # fig4-quick: the budget grid against each cell's sequential run
+    for display, grid in fig4.items():
+        horizon = grid.base.horizon
+        gres, wall, launches, syncs = counted(
+            lambda: repro_torch.run(grid, device=dev))
+        what = f"paper-fig4-quick {display}"
+        tier = gres.results[0].tier
+        batched = bool(gres.results[0].batched_axes)
+        runs = 1 if batched else len(gres.results)
+        panel_launches_ok(launches, syncs, display, horizon * runs, what)
+        if launches["masked_aggregate"] != horizon * runs:
+            fail(f"{what}: masked_aggregate launched "
+                 f"{launches['masked_aggregate']} times in {runs} run(s) of "
+                 f"{horizon} rounds")
+        t0 = time.perf_counter()
+        for cell, r in zip(gres.cells, gres.results):
+            if r.tier != (2 if display in ("CUCB", "LinUCB") else 3):
+                fail(f"{what}: tier {r.tier}")
+            if not np.isfinite(r.accuracy).all():
+                fail(f"{what}: non-finite accuracy {r.accuracy}")
+            seq, _, seq_launch, _ = counted(
+                lambda: repro_torch.run(cell, device=dev))
+            if seq_launch["masked_aggregate"] != horizon:
+                fail(f"{what}: a sequential cell launched masked_aggregate "
+                     f"{seq_launch['masked_aggregate']} times in {horizon} "
+                     f"rounds")
+            if not np.array_equal(seq.selections, r.selections):
+                fail(f"{what}: budget {cell.policy.budget}: the grid's "
+                     f"selections differ from the sequential run's")
+        seq_s = time.perf_counter() - t0
+        acc = gres.final_accuracy()[:, 0].tolist()
+        rps = horizon * len(gres.results) / wall
+        out["fig4"][display] = dict(tier=tier, batched=batched, wall_s=wall,
+                                    cell_rounds_per_s=rps,
+                                    final_accuracy=acc,
+                                    cumulative_utility=gres
+                                    .cumulative_utility()[:, 0].tolist())
+        print(f"  fig4 {display}: tier {tier}, budgets {FIG4_BUDGETS} "
+              f"{'batched in one run' if batched else 'one run a cell'}, "
+              f"{horizon} rounds in {wall:.3f} s = {rps:.1f} cell-rounds/s; "
+              f"launches { {k: v for k, v in launches.items() if v} }; "
+              f"final accuracy {acc}; equal to the sequential runs "
+              f"({seq_s:.1f} s)")
+
+    # the @smoke variant, the port on the CPU against the port on CUDA
+    t0 = time.perf_counter()
+    _, fig4s = panel_specs(smoke=True)
+    for display, grid in fig4s.items():
+        a = repro_torch.run(grid, device="cpu")
+        b = repro_torch.run(grid, device=dev)
+        gap = 0.0
+        for ra, rb in zip(a.results, b.results):
+            if not np.array_equal(ra.selections, rb.selections):
+                fail(f"fig4-quick@smoke {display}: selections differ CPU "
+                     f"vs CUDA")
+            gap = max(gap, float(np.abs(ra.accuracy - rb.accuracy).max()))
+        if gap > 1e-3:
+            fail(f"fig4-quick@smoke {display}: accuracy gap {gap} CPU vs "
+                 f"CUDA")
+        out["fig4_smoke"][display] = gap
+    print(f"  fig4-quick@smoke, CPU against CUDA: selections identical, "
+          f"accuracy gaps {out['fig4_smoke']} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 16 in {out['phase_s']:.1f} s")
+    return out
+
+
 # -- phase 11: the serve slice on CPU against CUDA ---------------------------
 
 def lm_cpu_vs_cuda(dev):
@@ -2639,6 +2846,10 @@ def main() -> int:
           "cocs/oracle/random)")
     bandit = bandit_tier(dev, profile)
 
+    print("phase 16: the paper's panels as written (repro_torch.run, host "
+          "env: paper-fig3, paper-fig4-quick)")
+    panels = paper_panels(dev)
+
     # each kernel's launches on its own main path: B1-B3 and Random's
     # scan the HFL runs of phase 4 (three policies), P3's walk the gated
     # non-convex run, B4 the qwen2 serve (the shape its row is timed at;
@@ -2670,7 +2881,8 @@ def main() -> int:
                       "device_times_taken_with": TIMED_WITH,
                       "rounds_per_s": rps, "hfl_cpu_vs_cuda":
                       hfl_cpu_vs_cuda, "nonconvex": nonconvex,
-                      "bandit": bandit, "serve": serve_rows}))
+                      "bandit": bandit, "panels": panels,
+                      "serve": serve_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

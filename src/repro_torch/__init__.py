@@ -5,10 +5,10 @@ slice, with hand-written CUDA kernels for the H100 in ``csrc/``. Imports
 ``torch`` and numpy only.
 
 The entry point is the reference's facade: ``repro_torch.run(spec)``
-takes an ``api.ExperimentSpec`` (the same JSON as ``repro.run``) and
-runs the bandit tier (``sim.engine.run_bandit_device``) or the training
-tier on a device env (``experiment.sweep.sweep_experiments``); the LM
-serve slice is ``launch.serve``. Entry points run on CUDA unless given
+takes an ``api.ExperimentSpec`` or an ``api.ExperimentGrid`` (the same
+JSON as ``repro.run``) and runs tiers 1-4 on the host env (``envs``,
+float64 numpy) or the device env (``sim``); the LM serve slice is
+``launch.serve``. Entry points run on CUDA unless given
 ``device="cpu"``.
 """
 

@@ -12,14 +12,19 @@
     api.run(spec, device="cpu")      # the plain PyTorch path
 
 The spec is the reference's (``repro.api``): the same JSON drives
-either package. ``run`` picks tier 1 (bandit-only) or tier 4 (training
-in the loop, ``train=api.TrainSpec()``) on a device env; the rest
-raises ``NotImplementedError`` naming its ROADMAP item (``api.run``).
+either package. ``run`` picks the tier by the reference's rules: 1
+(bandit-only), 2 (training with a host-state policy), 3 (training on a
+host env, ``EnvSpec("paper")``), 4 (training on a device env); a grid
+(``spec.grid(budget=[...])``) gives a ``GridResult``. What the port
+does not have yet raises ``NotImplementedError`` naming its ROADMAP
+item (``api.run``).
 """
 from __future__ import annotations
 
+from repro_torch.api.grid import GridResult, run_grid
 from repro_torch.api.run import (RunResult, build_env, build_policy,
-                                 resolve_config, run, select_tier)
+                                 cached_rollout, resolve_config, run,
+                                 select_tier)
 from repro_torch.api.spec import (GRID_AXES, EnvSpec, EvalSpec,
                                   ExperimentGrid, ExperimentSpec,
                                   PolicySpec, ShardSpec, TrainSpec,
@@ -27,7 +32,7 @@ from repro_torch.api.spec import (GRID_AXES, EnvSpec, EvalSpec,
 
 __all__ = [
     "EnvSpec", "EvalSpec", "ExperimentGrid", "ExperimentSpec", "GRID_AXES",
-    "PolicySpec", "RunResult", "ShardSpec", "TrainSpec", "build_env",
-    "build_policy", "env_spec_from_config", "resolve_config", "run",
-    "select_tier",
+    "GridResult", "PolicySpec", "RunResult", "ShardSpec", "TrainSpec",
+    "build_env", "build_policy", "cached_rollout", "env_spec_from_config",
+    "resolve_config", "run", "run_grid", "select_tier",
 ]

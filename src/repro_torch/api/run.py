@@ -1,26 +1,36 @@
-"""``repro_torch.run(spec) -> RunResult``: one entry point for the tiers
-the port has.
+"""``repro_torch.run(spec) -> RunResult``: one entry point for every
+tier.
 
 The facade reads a declarative ``ExperimentSpec`` (the same JSON the
 reference's ``repro.run`` reads) and picks the engine by the
 reference's rules:
 
-    tier 1  bandit-only        no ``TrainSpec``: on a device env,
-                               ``sim.engine.run_bandit_device``
+    tier 1  bandit-only        no ``TrainSpec``: the policy over realized
+                               rounds (``policies.engine``; the host
+                               env's rounds from the rollout cache), or
+                               ``sim.engine.run_bandit_device`` on a
+                               device env; host-state policies take
+                               ``run_rounds_host`` one seed at a time
+    tier 2  host-loop          training with a host-state policy (CUCB,
+                               LinUCB, phased COCS): one seed and one
+                               round at a time through
+                               ``fed.batched.train_round``
+    tier 3  fused              training with a tensor policy on a host
+                               env: ``experiment.fused.block_host``
     tier 4  device-env fused   training with a tensor policy on a device
-                               env: ``experiment.sweep.sweep_experiments``
+                               env: ``experiment.fused.block_device``
 
 and returns per-seed metrics with their provenance: the resolved spec,
 the tier that ran, the env backend and the draw-schedule id. Backend
 resolution is the reference's: ``backend="auto"`` takes the device
-simulator exactly when the scenario exists only there.
+simulator exactly when the scenario exists only there. ``run`` also
+takes an ``ExperimentGrid`` (``spec.grid(...)``) and batches its
+budget, deadline and hypercube cells (``api.grid``).
 
 What the port does not have yet raises ``NotImplementedError`` naming
 its ROADMAP item, before any work, and never runs a substitute:
 
-  * a host env, tier 2 (host-state policies), tier 3 (training on a host
-    env), ``TrainSpec.transposed_gemm`` and ``run`` of an
-    ``ExperimentGrid``: queue A item 2;
+  * ``TrainSpec.transposed_gemm`` (a TPU layout): queue A item 2;
   * enabled faults, an enabled ``ObsSpec``, checkpoints, the health
     guard, and an aggregator other than ``mean``: queue A item 3;
   * a sharded layout (``ShardSpec`` or ``shard_seeds``) and the
@@ -29,18 +39,21 @@ its ROADMAP item, before any work, and never runs a substitute:
 ``device=None`` runs on CUDA and raises without a CUDA device; pass
 ``device="cpu"`` for the plain PyTorch path. On CUDA every kernel
 launches, so ``use_kernel=False`` (the reference's plain route) is
-refused there; on the CPU the plain versions run whatever it says.
+refused there; on the CPU the plain versions run whatever it says. A
+host env computes its rounds on the CPU in float64, as the reference's
+does, and its stacked rounds then go to the run's device.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
 from repro_torch.api.spec import (EnvSpec, ExperimentGrid, ExperimentSpec,
                                   PolicySpec)
+from repro_torch.envs import cached_rollout
 
 # the reference's host scenarios (``repro.envs.SCENARIOS``) and its
 # device presets (``repro.sim.spec.PRESETS``), by name
@@ -56,15 +69,16 @@ class RunResult:
     """Structured result of one ``run``: metrics + provenance.
 
     Leading axes: S seeds (in ``spec.seeds`` order), T rounds, E evals.
-    ``accuracy``/``loss``/``eval_rounds`` are None for bandit-only runs;
-    ``health`` and ``telemetry`` are always None here (the port has
-    neither yet), as is ``batched_axes`` empty.
+    ``accuracy``/``loss``/``eval_rounds`` are None for bandit-only runs.
+    ``batched_axes`` names the grid axes the run was batched over (empty
+    outside ``api.grid``); ``health`` and ``telemetry`` are always None
+    here (the port has neither yet).
     """
     spec: ExperimentSpec                 # resolved spec (provenance)
-    tier: int                            # 1 or 4
-    env_backend: str                     # "device"
+    tier: int                            # 1..4, see the module docstring
+    env_backend: str                     # "host" | "device"
     draw_schedule: str                   # randomness-contract id
-    selections: np.ndarray               # (S, T, N) int32
+    selections: np.ndarray               # (S, T, N) int
     utilities: np.ndarray                # (S, T)
     participants: np.ndarray             # (S, T)
     explored: np.ndarray                 # (S, T) bool
@@ -127,27 +141,26 @@ def _env_backend(env_spec: EnvSpec) -> str:
     return "device" if use_device else "host"
 
 
-def _check_env(env_spec: EnvSpec, training: bool = False) -> None:
-    """A host env or a mesh cohort raises."""
+def _check_env(env_spec: EnvSpec) -> None:
+    """A mesh cohort raises."""
     scen = env_spec.scenario.lower()
-    if _env_backend(env_spec) == "host":
-        tier = ("training on a host env (tiers 2 and 3)" if training
-                else "a host env")
-        raise _not_ported(f"{tier}, scenario {scen!r} (give EnvSpec "
-                          "backend='device' for the device simulator)", 2)
     if scen in MESH_PRESETS:
         raise _not_ported(f"the {scen!r} cohort", 4)
 
 
 def build_env(env_spec: EnvSpec):
-    """EnvSpec -> ``sim.spec.DeviceEnv``; a host env raises."""
+    """EnvSpec -> ``envs.HFLEnv`` (host) | ``sim.spec.DeviceEnv``."""
+    from repro_torch import envs
     from repro_torch.sim import spec as simspec
 
     _check_env(env_spec)
-    return simspec.make(env_spec.scenario.lower(),
-                        resolve_config(env_spec),
-                        mc_true_p=env_spec.mc_true_p,
-                        true_p=env_spec.true_p)
+    scen = env_spec.scenario.lower()
+    cfg = resolve_config(env_spec)
+    if _env_backend(env_spec) == "device":
+        return simspec.make(scen, cfg, mc_true_p=env_spec.mc_true_p,
+                            true_p=env_spec.true_p)
+    return envs.make(scen, cfg, true_p=env_spec.true_p,
+                     faults=env_spec.faults)
 
 
 def build_policy(policy_spec: PolicySpec, cfg, horizon: int):
@@ -196,53 +209,53 @@ def _refuse(spec: ExperimentSpec) -> None:
         if spec.train.transposed_gemm:
             raise _not_ported("the transposed logreg layout "
                               "(TrainSpec.transposed_gemm)", 2)
-    _check_env(spec.env, training=spec.train is not None)
+    _check_env(spec.env)
 
 
 # -- the facade --------------------------------------------------------------
 
 
-def run(spec, *, data=None, device=None) -> RunResult:
-    """Run one ``ExperimentSpec``.
-
-    ``data`` optionally supplies the ``FederatedDataset`` of a training
-    tier (default: synthetic data keyed on the model kind). ``device``
-    is the torch device: ``None`` means CUDA and raises without it."""
-    from repro_torch.experiment.sweep import sweep_experiments
-    from repro_torch.kernels.common import resolve_device
-    from repro_torch.sim.draws import SCHEDULE_ID
-    from repro_torch.sim.engine import run_bandit_device
-
-    if isinstance(spec, ExperimentGrid):
-        raise _not_ported("run of an ExperimentGrid (expand() gives its "
-                          "cells as specs)", 2)
-    if not isinstance(spec, ExperimentSpec):
-        raise TypeError("repro_torch.run expects an ExperimentSpec, got "
-                        f"{type(spec).__name__}")
-    _refuse(spec)
-    dev = resolve_device(device)
+def _check_device(spec: ExperimentSpec, dev) -> None:
     if dev.type == "cuda":
         for what, sub in (("EnvSpec", spec.env), ("TrainSpec", spec.train)):
             if sub is not None and sub.use_kernel is False:
                 raise ValueError(
                     f"{what}.use_kernel=False asks for the plain route, "
                     "which the port runs on the CPU only (device='cpu')")
+
+
+def run(spec, *, data=None, device=None):
+    """Run one ``ExperimentSpec`` (-> ``RunResult``) or an
+    ``ExperimentGrid`` (-> ``api.grid.GridResult``).
+
+    ``data`` optionally supplies the ``FederatedDataset`` of a training
+    tier (default: synthetic data keyed on the model kind). ``device``
+    is the torch device: ``None`` means CUDA and raises without it."""
+    if isinstance(spec, ExperimentGrid):
+        from repro_torch.api.grid import run_grid
+        return run_grid(spec, data=data, device=device)
+    if not isinstance(spec, ExperimentSpec):
+        raise TypeError("repro_torch.run expects an ExperimentSpec or "
+                        f"ExperimentGrid, got {type(spec).__name__}")
+    from repro_torch.experiment.sweep import sweep_experiments
+    from repro_torch.kernels.common import resolve_device
+    from repro_torch.sim.draws import SCHEDULE_ID
+    from repro_torch.sim.spec import DeviceEnv
+
+    _refuse(spec)
+    dev = resolve_device(device)
+    _check_device(spec, dev)
     env = build_env(spec.env)
     policy = build_policy(spec.policy, env.cfg, spec.horizon)
     tier = select_tier(spec, policy, env)
-    if tier in (2, 3):
-        raise _not_ported(f"tier {tier}", 2)
+    backend = "device" if isinstance(env, DeviceEnv) else "host"
     seeds = [int(s) for s in spec.seeds]
     pol_seeds = [s + spec.policy.seed_offset for s in seeds]
-    common = dict(spec=spec, tier=tier, env_backend="device",
+    common = dict(spec=spec, tier=tier, env_backend=backend,
                   draw_schedule=SCHEDULE_ID)
     if tier == 1:
-        out = run_bandit_device(policy, env.spec, seeds, spec.horizon,
-                                policy_seeds=pol_seeds, device=dev)
-        return RunResult(**common, selections=out["selections"],
-                         utilities=out["utilities"],
-                         participants=out["participants"],
-                         explored=out["explored"])
+        return RunResult(**common, **_run_bandit(
+            policy, env, seeds, pol_seeds, spec.horizon, backend, dev))
     name = spec.policy.name
     res = sweep_experiments(
         {name: policy}, env, seeds, spec.horizon,
@@ -259,5 +272,41 @@ def run(spec, *, data=None, device=None) -> RunResult:
                      accuracy=res.accuracy[name], loss=res.loss[name])
 
 
-__all__ = ["RunResult", "build_env", "build_policy", "resolve_config",
-           "run", "select_tier"]
+_FIELDS = ("selections", "utilities", "participants", "explored")
+
+
+def _run_bandit(policy, env, seeds: Sequence[int], pol_seeds: Sequence[int],
+                horizon: int, backend: str, dev) -> dict:
+    """Tier-1 engines, by the reference's dispatch: a device env runs the
+    device bandit engine; on a host env a tensor policy with one seed
+    runs ``run_rounds`` and with several ``run_rounds_multi_seed`` on the
+    realized rounds; a host-state policy runs ``run_rounds_host`` seed
+    by seed."""
+    from repro_torch import policies as P
+    from repro_torch.experiment.sweep import host_rounds
+    from repro_torch.policies.base import round_from_arrays
+    from repro_torch.sim.engine import run_bandit_device
+
+    if policy.tensor_capable:
+        if backend == "device":
+            out = run_bandit_device(policy, env.spec, seeds, horizon,
+                                    policy_seeds=pol_seeds, device=dev)
+        else:
+            batch = round_from_arrays(env.rollout_multi(seeds, horizon), dev)
+            if len(seeds) == 1:
+                one = P.run_rounds(policy, P.Round(*(f[0] for f in batch)),
+                                   seed=pol_seeds[0])
+                out = {k: one[k][None] for k in _FIELDS}
+            else:
+                out = P.run_rounds_multi_seed(policy, batch, pol_seeds)
+    else:
+        per_seed = [P.run_rounds_host(policy,
+                                      host_rounds(env, s, horizon, dev),
+                                      seed=ps)
+                    for s, ps in zip(seeds, pol_seeds)]
+        out = {k: np.stack([o[k] for o in per_seed]) for k in _FIELDS}
+    return {k: np.asarray(out[k]) for k in _FIELDS}
+
+
+__all__ = ["RunResult", "build_env", "build_policy", "cached_rollout",
+           "resolve_config", "run", "select_tier"]

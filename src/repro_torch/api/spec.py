@@ -16,9 +16,7 @@ into a config grid (``ExperimentGrid``). Axis values are applied with
 in the expansion (C order over the kwargs). ``GRID_AXES`` marks the
 axes that preserve every array shape (budget, deadline, ``h_t``,
 ``alpha``) as batchable: the grid engines stack their cells next to the
-seed axis (``policies.engine``, ``sim.engine``). ``repro_torch.run`` of
-a whole grid is not ported yet (ROADMAP queue A item 2); ``expand()``
-gives its cells as specs.
+seed axis (``repro_torch.run`` of a grid, ``api.grid``).
 """
 from __future__ import annotations
 

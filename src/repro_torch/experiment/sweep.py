@@ -1,13 +1,28 @@
-"""``sweep_experiments``: whole multi-seed HFL experiments on a device
-environment, one training block per eval interval.
+"""``sweep_experiments``: whole multi-seed HFL experiments, one training
+block per eval interval, the engine of ``repro_torch.run``'s training
+tiers.
 
-Every seed gets its own realized environment (``sim``), model init
+Every seed gets its own realized environment, model init
 (``PRNGKey(seed)``; logreg starts at zero), sampler stream
 (``PRNGKey(seed + 11)``) and policy state, over one shared dataset
-(``seed=0``), as the reference's ``sweep_experiments``; the seed axis is
-a batch dimension throughout. Policies: ``cocs``, ``oracle``, ``random``
-(by registry name, or built, as a dict name -> policy); models:
-``logreg`` (784-d "mnist" data) and ``cnn`` (32x32x3 "cifar" data).
+(``seed=0``), as the reference's ``sweep_experiments``. Three paths:
+
+* tier 4, a device env (``"device:<preset>"``) and a tensor policy: the
+  rounds are generated inside each block (``fused.block_device``), the
+  seed axis a batch dimension throughout;
+* tier 3, a host env (``"paper"``, ``"host:<scenario>"``, an
+  ``envs.HFLEnv``) and a tensor policy: the rounds are realized on the
+  host (float64 numpy), stacked, moved to the run's device once, and
+  walked by ``fused.block_host``;
+* tier 2, a host-state policy (``cucb``, ``linucb``, ``cocs-phased``):
+  one seed at a time, the policy selects on ``RoundData`` on the host
+  and the assignment trains through ``fed.batched.train_round`` as a
+  (1, N) tensor (a device env's rounds are realized for it by
+  ``DeviceEnv.rollout``).
+
+Policies are registry names (COCS with the config's knobs) or built, as
+a dict name -> policy; models: ``logreg`` (784-d "mnist" data) and
+``cnn`` (32x32x3 "cifar" data).
 """
 from __future__ import annotations
 
@@ -19,13 +34,17 @@ import torch
 
 from repro_torch import policies as registry
 from repro_torch import random as jr
-from repro_torch.core.utility import _policy_kwargs
+from repro_torch.core.utility import _policy_kwargs, realized_utility
 from repro_torch.data.federated import FederatedDataset, StackedClients
-from repro_torch.experiment.fused import block_device
-from repro_torch.fed.batched import BatchedRoundSpec
+from repro_torch.envs import cached_rollout
+from repro_torch.experiment.fused import block_device, block_eval, \
+    block_host
+from repro_torch.fed.batched import BatchedRoundSpec, train_round
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.logistic import init_cnn, init_logreg
-from repro_torch.policies.base import FunctionalPolicy, PolicySpec
+from repro_torch.policies.base import (FunctionalPolicy, PolicyAdapter,
+                                       PolicySpec, Round, round_from_arrays,
+                                       round_from_data, rounds_to_scan_axes)
 from repro_torch.sim import spec as simspec
 from repro_torch.sim.core import init_statics
 
@@ -119,6 +138,15 @@ def _make_policies(policies: Sequence[str], cfg, horizon
             for name in policies}
 
 
+def host_rounds(env, seed: int, horizon: int, dev) -> list:
+    """A seed's ``RoundData`` for a host-state policy: a host env's cached
+    rollout (``envs.cached_rollout``), or a device env's rounds realized
+    on ``dev`` (``DeviceEnv.rollout``)."""
+    if isinstance(env, simspec.DeviceEnv):
+        return env.rollout(seed, horizon, device=dev)
+    return list(cached_rollout(env, seed, horizon))
+
+
 def sweep_experiments(policies: Union[Sequence[str],
                                       Dict[str, FunctionalPolicy]],
                       env, seeds: Sequence[int], horizon: int, *,
@@ -128,21 +156,27 @@ def sweep_experiments(policies: Union[Sequence[str],
                       slots_per_es: Optional[int] = None,
                       policy_seed_offset: int = 0,
                       device=None) -> SweepResult:
-    """Run every policy for every seed over ``horizon`` training rounds
-    on a device environment (``"device:<preset>"``).
+    """Run every policy for every seed over ``horizon`` training rounds.
 
-    ``policies`` is a list of registry names (COCS with the config's
-    knobs) or a dict name -> ``FunctionalPolicy``.
-    ``policy_seed_offset`` shifts the policy init seeds from the env
-    seeds (``core.utility.POLICY_TABLE``'s offsets); the env, model and
-    sampler streams stay keyed on the env seeds.
+    ``env`` is a host ``envs.HFLEnv``, a ``sim.spec.DeviceEnv`` or a
+    string selector (``sim.spec.resolve``: ``"paper"`` is the host env,
+    ``"device:paper"`` the device env). ``policies`` is a list of
+    registry names (COCS with the config's knobs) or a dict name ->
+    ``FunctionalPolicy``. ``policy_seed_offset`` shifts the policy init
+    seeds from the env seeds (``core.utility.POLICY_TABLE``'s offsets);
+    the env, model and sampler streams stay keyed on the env seeds.
+    A host env's rounds come from its rollout cache
+    (``envs.cached_rollout``), so the policies of a panel share them.
 
     ``device=None`` runs on CUDA and raises without a CUDA device; pass
-    ``device="cpu"`` for the plain PyTorch path. ``slots_per_es`` pins
-    the per-ES slot capacity (a round that assigns more raises);
-    ``None`` sizes each round to its largest cohort."""
+    ``device="cpu"`` for the plain PyTorch path. A host env's rounds are
+    realized on the CPU either way (its design) and then moved to
+    ``device``. ``slots_per_es`` pins the per-ES slot capacity (a round
+    that assigns more raises); ``None`` sizes each round to its largest
+    cohort."""
     dev = resolve_device(device)
     env = simspec.resolve(env)
+    device_env = isinstance(env, simspec.DeviceEnv)
     cfg = env.cfg
     seeds = [int(x) for x in seeds]
     pols = (dict(policies) if isinstance(policies, dict)
@@ -150,34 +184,139 @@ def sweep_experiments(policies: Union[Sequence[str],
     pol_seeds = [x + int(policy_seed_offset) for x in seeds]
     setup = prepare_training(cfg, model_kind, batch_size,
                              batches_per_epoch, data, seeds, dev)
-    seed_t = torch.as_tensor(seeds, dtype=torch.int64, device=dev)
-    statics = init_statics(env.spec, seed_t)
     ends = _block_bounds(horizon, eval_every)
+
+    scan_rounds = None
+    if not device_env and any(p.tensor_capable for p in pols.values()):
+        scan_rounds = round_from_arrays(
+            rounds_to_scan_axes(env.rollout_multi(seeds, horizon)), dev)
+    seed_t = torch.as_tensor(seeds, dtype=torch.int64, device=dev)
     result = SweepResult(policies=list(pols), seeds=seeds,
                          eval_rounds=np.asarray(ends), accuracy={}, loss={},
                          utilities={}, participants={}, selections={},
                          explored={})
     for name, pol in pols.items():
-        pstate = pol.init(len(seeds), dev, pol_seeds)
-        edge = {k: v.clone() for k, v in setup.edge_seed.items()}
-        pos = statics.pos0.clone()
-        outs, lo = [], 0
-        for hi in ends:
-            out = block_device(pol, setup.spec, env.spec, pstate, edge, pos,
-                               seed_t, statics, lo, hi, setup.stacked,
-                               setup.base_keys, setup.batch, setup.test_x,
-                               setup.test_y, slots=slots_per_es)
-            pstate, edge, pos = out.policy_state, out.edge_params, \
-                out.env_pos
-            outs.append(out)
-            lo = hi
-        host = lambda f, cat: (torch.cat if cat else torch.stack)(
-            [getattr(o, f) for o in outs], dim=1).cpu().numpy()
-        result.accuracy[name] = host("accuracy", False)
-        result.loss[name] = host("loss", False)
-        result.utilities[name] = host("utilities", True)
-        result.participants[name] = host("participants", True)
-        result.selections[name] = host("selections", True)
-        result.explored[name] = host("explored", True)
-        result.train_loss[name] = host("train_loss", True)
+        if not pol.tensor_capable:
+            out = run_host(pol, setup,
+                           [host_rounds(env, x, horizon, dev) for x in seeds],
+                           pol_seeds, ends, slots_per_es)
+        elif device_env:
+            out = run_fused_device(pol, setup, env.spec, seed_t,
+                                   init_statics(env.spec, seed_t),
+                                   pol.init(len(seeds), dev, pol_seeds),
+                                   ends, slots_per_es)
+        else:
+            out = run_fused(pol, setup, scan_rounds,
+                            pol.init(len(seeds), dev, pol_seeds), ends,
+                            slots_per_es)
+        for f in ("accuracy", "loss", "utilities", "participants",
+                  "selections", "explored", "train_loss"):
+            getattr(result, f)[name] = out[f]
     return result
+
+
+_BLOCK_FIELDS = {"accuracy": False, "loss": False, "utilities": True,
+                 "participants": True, "selections": True,
+                 "explored": True, "train_loss": True}
+
+
+def _collect_blocks(outs) -> Dict[str, np.ndarray]:
+    """Per-block outputs -> host numpy with leading (S, T) or (S, E)."""
+    return {f: (torch.cat if cat else torch.stack)(
+        [getattr(o, f) for o in outs], dim=1).cpu().numpy()
+        for f, cat in _BLOCK_FIELDS.items()}
+
+
+def run_fused_device(pol: FunctionalPolicy, setup: TrainingSetup,
+                     sim_spec, seed_t: torch.Tensor, statics, pstate,
+                     ends: List[int], slots: Optional[int] = None,
+                     budgets: Optional[torch.Tensor] = None,
+                     deadlines: Optional[torch.Tensor] = None
+                     ) -> Dict[str, np.ndarray]:
+    """Tier 4: every batch element at once, one ``block_device`` an eval
+    interval (``budgets``/``deadlines``: a grid's per-element cells)."""
+    edge = {k: v.clone() for k, v in setup.edge_seed.items()}
+    pos = statics.pos0.clone()
+    outs, lo = [], 0
+    for hi in ends:
+        out = block_device(pol, setup.spec, sim_spec, pstate, edge, pos,
+                           seed_t, statics, lo, hi, setup.stacked,
+                           setup.base_keys, setup.batch, setup.test_x,
+                           setup.test_y, slots=slots, budgets=budgets,
+                           deadlines=deadlines)
+        pstate, edge, pos = out.policy_state, out.edge_params, out.env_pos
+        outs.append(out)
+        lo = hi
+    return _collect_blocks(outs)
+
+
+def run_fused(pol: FunctionalPolicy, setup: TrainingSetup,
+              scan_rounds: Round, pstate, ends: List[int],
+              slots: Optional[int] = None,
+              budgets: Optional[torch.Tensor] = None
+              ) -> Dict[str, np.ndarray]:
+    """Tier 3: the host env's (T, S, ...) rounds, one ``block_host`` an
+    eval interval."""
+    edge = {k: v.clone() for k, v in setup.edge_seed.items()}
+    outs, lo = [], 0
+    for hi in ends:
+        out = block_host(pol, setup.spec, pstate, edge,
+                         Round(*(f[lo:hi] for f in scan_rounds)),
+                         setup.stacked, setup.base_keys, setup.batch,
+                         setup.test_x, setup.test_y, slots=slots,
+                         budgets=budgets)
+        pstate, edge = out.policy_state, out.edge_params
+        outs.append(out)
+        lo = hi
+    return _collect_blocks(outs)
+
+
+def run_host(pol: FunctionalPolicy, setup: TrainingSetup, rounds_per_seed,
+             pol_seeds: Sequence[int], ends: List[int],
+             slots: Optional[int] = None) -> Dict[str, np.ndarray]:
+    """Tier 2: one seed at a time, a ``PolicyAdapter`` selects on each
+    ``RoundData`` and the assignment trains through ``train_round`` as a
+    (1, N) tensor; utilities in float64 (``realized_utility``), as the
+    reference's ``_run_host``."""
+    s, horizon = len(rounds_per_seed), len(rounds_per_seed[0])
+    n = pol.spec.num_clients
+    dev = setup.base_keys.device
+    out = {"accuracy": np.zeros((s, len(ends))),
+           "loss": np.zeros((s, len(ends))),
+           "utilities": np.zeros((s, horizon)),
+           "participants": np.zeros((s, horizon)),
+           "selections": np.zeros((s, horizon, n), np.int64),
+           "explored": np.zeros((s, horizon), bool),
+           "train_loss": np.zeros((s, horizon, 2), np.float32)}
+    for si in range(s):
+        adapter = PolicyAdapter(pol, seed=pol_seeds[si])
+        base_key = setup.base_keys[si:si + 1]
+        edge = {k: v[si:si + 1].clone() for k, v in setup.edge_seed.items()}
+        lo = 0
+        for ei, hi in enumerate(ends):
+            parts, losses = [], []
+            for t in range(lo, hi):
+                rd = rounds_per_seed[si][t]
+                assign = adapter.step(rd)
+                out["selections"][si, t] = assign
+                out["explored"][si, t] = adapter.last_explored
+                out["utilities"][si, t] = realized_utility(
+                    assign, rd, pol.spec.sqrt_utility)
+                view = round_from_data(rd)._replace(t=np.int32(t))
+                r = round_from_arrays([np.asarray(f)[None] for f in view],
+                                      dev)
+                a = torch.as_tensor(np.asarray(assign, np.int32)[None],
+                                    device=dev)
+                edge, p, loss = train_round(setup.spec, edge, a, r,
+                                            setup.stacked, base_key,
+                                            setup.batch, slots)
+                parts.append(p)
+                losses.append(loss)
+            out["participants"][si, lo:hi] = torch.cat(parts).cpu().numpy()
+            out["train_loss"][si, lo:hi] = torch.cat(losses).cpu().numpy()
+            acc, loss = block_eval(edge, setup.test_x, setup.test_y,
+                                   setup.spec.model)
+            out["accuracy"][si, ei] = float(acc[0])
+            out["loss"][si, ei] = float(loss[0])
+            lo = hi
+    return out

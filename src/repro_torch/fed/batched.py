@@ -1,9 +1,19 @@
-"""The batched training round's building blocks: the static round
-spec, on-device minibatch indices, and per-slot local SGD.
+"""The batched training round: the static round spec, on-device
+minibatch indices, per-slot local SGD, and ``train_round``, the one
+training body every tier runs (packing, Eq. 2 local SGD, Eq. 6 masks,
+Eq. 3 masked aggregation, cloud sync).
 
 Minibatch indices come from the same counter-based keys as the
 reference's (``fold_in(fold_in(base_key, t), uid)`` with a per-(ES,
 slot) id), so both packages draw the same samples.
+
+The host-loop tier (tier 2, ``experiment.sweep.run_host``) calls
+``train_round`` one seed and one round at a time, with a host-state
+policy's assignment as a (1, N) tensor. Slot capacity is decided per
+round (the round's largest per-ES cohort, or a pinned
+``slots_per_es``); the slot order is the reference's ``_pack`` order
+(ascending client index per ES) and padded slots carry weight 0, so the
+capacity changes no result.
 """
 from __future__ import annotations
 
@@ -11,9 +21,13 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch import random as jr
+from repro_torch.experiment.packing import es_counts, pack_assignment
 from repro_torch.fed.client import sgd_trajectory
+from repro_torch.fed.edge import broadcast_global, effective_mask_multi
+from repro_torch.kernels.masked_aggregate.ops import masked_aggregate_rows
 from repro_torch.models.logistic import Params
 
 
@@ -84,3 +98,62 @@ def slot_train(slot_params: Params, batches: Dict[str, torch.Tensor],
                valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``train_slots``' deltas alone."""
     return train_slots(slot_params, batches, spec, out, valid)[0]
+
+
+def _capacity(assign: torch.Tensor, m: int, slots: Optional[int]) -> int:
+    peak = max(int(es_counts(assign, m).max()), 1)
+    if slots is None:
+        return peak
+    if peak > slots:
+        raise ValueError(
+            f"a round assigned {peak} clients to one ES but slots_per_es="
+            f"{slots}; raise slots_per_es or leave it None")
+    return slots
+
+
+def train_round(spec: BatchedRoundSpec, edge: Dict[str, torch.Tensor],
+                assign: torch.Tensor, rd, stacked, base_keys: torch.Tensor,
+                batch: int, slots: Optional[int] = None):
+    """Train one round's assignment for every batch element:
+    ``assign`` (S, N) int, ``rd`` a ``Round`` of (S, ...) tensors (its
+    ``t``, ``outcomes`` and ``latency`` are read), ``edge`` (S, M, ...).
+    Returns ``(edge', participants (S,), train_loss (S, 2))``: local
+    SGD's loss at its first and last step, the mean over each element's
+    filled slots (0 where it filled none)."""
+    m, steps = spec.num_edge_servers, spec.steps
+    s = assign.shape[0]
+    with record_function("round.train"):
+        cap = _capacity(assign, m, slots)
+        ci, valid, arrived, tau = pack_assignment(assign, rd.outcomes,
+                                                  rd.latency, m, cap)
+        idx = device_batch_indices(base_keys, rd.t, ci, stacked.sizes,
+                                   steps, batch)      # (S, M, cap, st, B)
+        cl, il = ci.long()[..., None, None], idx.long()
+        flat = s * m * cap
+        xb = stacked.x[cl, il]                        # (S, M, cap, st, B, F)
+        batches = {"x": xb.reshape((flat, steps, batch) + xb.shape[5:]),
+                   "y": stacked.y[cl, il].reshape(flat, steps, batch)}
+        slot_params = {k: a[:, :, None].expand((s, m, cap) + a.shape[2:])
+                       .reshape((flat,) + a.shape[2:])
+                       for k, a in edge.items()}
+        d = sum(a[0, 0].numel() for a in edge.values())
+        deltas, step_loss = train_slots(
+            slot_params, batches, spec,
+            torch.empty((flat, d), dtype=torch.float32, device=ci.device),
+            valid.reshape(flat))
+        filled = valid.reshape(s, m * cap, 1) > 0
+        ends = step_loss[:, [0, -1]].reshape(s, m * cap, 2)
+        train_loss = torch.where(filled, ends, torch.zeros_like(ends)).sum(
+            dim=1) / torch.clamp(filled.sum(dim=1), min=1)
+        w = effective_mask_multi(arrived.reshape(s * m, cap),
+                                 tau.reshape(s * m, cap),
+                                 valid.reshape(s * m, cap),
+                                 spec.z_min).reshape(s, m, cap)
+    with record_function("round.aggregate"):
+        new_edge = masked_aggregate_rows(edge, deltas.view(s * m, cap, d),
+                                         w)
+        if (int(rd.t[0]) + 1) % spec.t_es == 0:
+            new_edge = broadcast_global(new_edge)
+    parts = (arrived * valid).sum(dim=(1, 2))
+    return new_edge, parts, train_loss
+

@@ -4,23 +4,29 @@
     spec = policies.PolicySpec.from_experiment(cfg, horizon=300)
     pol = policies.make("cocs", spec, h_t=5)
 
-Registered names (case-insensitive): ``cocs``, ``oracle``, ``random``.
-The reference's host-state policies ``cucb``, ``linucb`` and
-``cocs-phased`` are not ported (ROADMAP queue A item 3): ``make`` raises
-``KeyError`` for them, naming that item. The tier-[1] engine's functions
-are exported here, as ``repro.policies`` exports them.
+Registered names (case-insensitive): the tensor policies ``cocs``,
+``oracle`` and ``random`` (a leading seed axis, driven by the engines of
+``policies.engine``, ``sim.engine`` and ``experiment``), and the
+host-state policies ``cucb``, ``linucb`` and ``cocs-phased`` (the
+reference's numpy engines, one seed at a time on ``RoundData``:
+``run_rounds_host``, or ``PolicyAdapter``). The engines' functions are
+exported here, as ``repro.policies`` exports them.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, Tuple
 
-from repro_torch.policies.base import (FunctionalPolicy, PolicySpec, Round,
-                                       round_from_arrays)
-from repro_torch.policies.baselines import Oracle, Random
+from repro_torch.policies.base import (FunctionalPolicy, PolicyAdapter,
+                                       PolicySpec, Round, round_from_arrays,
+                                       round_from_data, rounds_to_scan_axes,
+                                       stack_rounds)
+from repro_torch.policies.baselines import (CUCB, HostCOCS, LinUCB, Oracle,
+                                            Random)
 from repro_torch.policies.cocs import COCS, COCSState
 from repro_torch.policies.engine import (policy_scan_step, run_rounds,
                                          run_rounds_grid,
                                          run_rounds_grid_params,
+                                         run_rounds_host,
                                          run_rounds_multi_seed,
                                          stack_rounds_multi, stack_states,
                                          traced_utility)
@@ -29,9 +35,10 @@ from repro_torch.policies.solvers import (feasible_cohort_bound,
                                           random_assign)
 
 _REGISTRY: Dict[str, Callable[..., FunctionalPolicy]] = {
-    "cocs": COCS, "oracle": Oracle, "random": Random}
-# the reference's host-state policies, which wrap its numpy engines
-NOT_PORTED = ("cucb", "linucb", "cocs-phased")
+    "cocs": COCS, "oracle": Oracle, "random": Random, "cucb": CUCB,
+    "linucb": LinUCB,
+    "cocs-phased": lambda spec, **kw: HostCOCS(spec=spec, phased=True,
+                                                **kw)}
 
 
 def names() -> Tuple[str, ...]:
@@ -40,20 +47,18 @@ def names() -> Tuple[str, ...]:
 
 def make(name: str, spec: PolicySpec, **overrides) -> FunctionalPolicy:
     key = name.lower()
-    if key in NOT_PORTED:
-        raise KeyError(f"policy {name!r} is a host-state policy of the "
-                       "reference, not ported yet (ROADMAP queue A item "
-                       f"3); the port has {names()}")
     if key not in _REGISTRY:
         raise KeyError(f"unknown policy {name!r}; the port has {names()}")
     return _REGISTRY[key](spec=spec, **overrides)
 
 
 __all__ = [
-    "COCS", "COCSState", "FunctionalPolicy", "Oracle", "PolicySpec",
-    "Random", "Round", "feasible_cohort_bound", "flgreedy_assign",
-    "greedy_assign", "make", "names", "policy_scan_step", "random_assign",
-    "round_from_arrays", "run_rounds", "run_rounds_grid",
-    "run_rounds_grid_params", "run_rounds_multi_seed",
-    "stack_rounds_multi", "stack_states", "traced_utility",
+    "COCS", "COCSState", "CUCB", "FunctionalPolicy", "HostCOCS", "LinUCB",
+    "Oracle", "PolicyAdapter", "PolicySpec", "Random", "Round",
+    "feasible_cohort_bound", "flgreedy_assign", "greedy_assign", "make",
+    "names", "policy_scan_step", "random_assign", "round_from_arrays",
+    "round_from_data", "rounds_to_scan_axes", "run_rounds",
+    "run_rounds_grid", "run_rounds_grid_params", "run_rounds_host",
+    "run_rounds_multi_seed", "stack_rounds", "stack_rounds_multi",
+    "stack_states", "traced_utility",
 ]

@@ -10,6 +10,12 @@ all seeds at once (the reference ``vmap``s the same functions).
 ``select_with_budgets`` takes the per-ES budgets as an (S, M) tensor,
 one row per batch element: the grid engines batch budget cells next to
 the seeds that way (``policies.engine``).
+
+The host env's ``RoundData`` (float64 numpy) becomes a ``Round`` through
+``round_from_data`` (numpy in the reference's float32 dtypes) and
+``round_from_arrays`` (tensors). Host-state policies (CUCB, LinUCB,
+phased COCS, ``tensor_capable = False``) select on ``RoundData`` one seed
+at a time; ``PolicyAdapter`` drives them one round at a time.
 """
 from __future__ import annotations
 
@@ -54,6 +60,34 @@ def round_from_arrays(fields: Sequence[Any], device=None) -> Round:
                          f"{Round._fields}, got {len(fields)}")
     return Round(*(_tensor(f, dt, device)
                    for f, dt in zip(fields, _ROUND_DTYPES)))
+
+
+def round_from_data(rd) -> Round:
+    """One host ``RoundData`` -> a ``Round`` of numpy arrays in the
+    float32 dtypes the tensor policies take (contexts' NaNs zeroed)."""
+    lat = rd.latency if rd.latency is not None else 1.0 - rd.true_p
+    return Round(t=np.int32(rd.t),
+                 contexts=np.nan_to_num(rd.contexts).astype(np.float32),
+                 eligible=np.asarray(rd.eligible, bool),
+                 costs=rd.costs.astype(np.float32),
+                 outcomes=rd.outcomes.astype(np.float32),
+                 true_p=rd.true_p.astype(np.float32),
+                 latency=np.asarray(lat, np.float32))
+
+
+def stack_rounds(rounds) -> Round:
+    """List of RoundData -> ``Round`` of numpy arrays with a leading T
+    axis."""
+    views = [round_from_data(rd) for rd in rounds]
+    return Round(*(np.stack([getattr(v, f) for v in views])
+                   for f in Round._fields))
+
+
+def rounds_to_scan_axes(batch: Round) -> Round:
+    """(S, T, ...) multi-seed batch -> (T, S, ...), so a block walks
+    rounds with the seed axis batched inside each step."""
+    return Round(*(np.moveaxis(np.asarray(getattr(batch, f)), 1, 0)
+                   for f in Round._fields))
 
 
 @dataclass(frozen=True)
@@ -110,3 +144,42 @@ class FunctionalPolicy:
 
     def update(self, state, rd: Round, assign, aux=None):
         return state
+
+
+class PolicyAdapter:
+    """One seed of a host-state policy, one round at a time, on
+    ``RoundData``: ``select(rd) -> assign`` (N,) int64, ``update(rd,
+    assign)``, ``step`` (both), and ``last_explored``. A tensor policy is
+    refused: the engines (``run_rounds`` and its batched forms) drive
+    those on the run's device."""
+
+    def __init__(self, policy: FunctionalPolicy, seed: int = 0):
+        if policy.tensor_capable:
+            raise ValueError(
+                f"{policy.name} is a tensor policy; PolicyAdapter drives "
+                "host policies only (run_rounds drives tensor policies)")
+        self.policy = policy
+        self._state = policy.init(int(seed))
+        self._aux = None
+        self.last_explored = False
+
+    def select(self, rd) -> np.ndarray:
+        assign, aux = self.policy.select(self._state, rd)
+        self._aux = aux
+        if "explored" in aux:
+            self.last_explored = bool(
+                np.asarray(aux["explored"]).reshape(-1)[0])
+        return np.asarray(assign, np.int64)
+
+    def update(self, rd, assign: np.ndarray) -> None:
+        self._state = self.policy.update(self._state, rd,
+                                         np.asarray(assign), self._aux)
+
+    def step(self, rd) -> np.ndarray:
+        assign = self.select(rd)
+        self.update(rd, assign)
+        return assign
+
+    @property
+    def state(self):
+        return self._state

@@ -11,22 +11,15 @@ reference's (``policies/cocs.py``), operation for operation.
 """
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass, field
 from typing import ClassVar, NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.core.cocs import theorem2_params
 from repro_torch.core.fmath import sqrt_rn
 from repro_torch.policies.base import FunctionalPolicy, Round
 from repro_torch.policies.solvers import flgreedy_assign, greedy_assign
-
-
-def theorem2_params(horizon: int, alpha: float = 1.0) -> Tuple[float, int]:
-    """(z, h_T) from Theorem 2."""
-    z = 2 * alpha / (3 * alpha + 2)
-    h_t = max(1, math.ceil(horizon ** (z / (2 * alpha))))
-    return z, h_t
 
 
 # the reference's defaults: K(t) multiplier and UCB bonus coefficient

@@ -17,8 +17,8 @@ element equals the sequential run with its parameters, bit for bit.
 Outputs match the reference's: host numpy ``selections`` (S, T, N)
 int32, ``utilities`` and ``participants`` (S, T) float32, ``explored``
 (S, T) bool, and ``final_state`` as tensors. Host-state policies (CUCB,
-LinUCB, phased COCS) and their sequential loop are not ported (ROADMAP
-queue A item 3).
+LinUCB, phased COCS) take ``run_rounds_host``: one seed, one round at a
+time on ``RoundData``, as the reference's sequential driver.
 """
 from __future__ import annotations
 
@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.fmath import mul_rcp, sqrt_rn
-from repro_torch.policies.base import FunctionalPolicy, Round
+from repro_torch.core.utility import realized_utility
+from repro_torch.policies.base import FunctionalPolicy, PolicyAdapter, Round
 
 StepOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -52,10 +53,9 @@ def traced_utility(assign: torch.Tensor, outcomes: torch.Tensor,
 
 def require_tensor_policy(policy: FunctionalPolicy, what: str) -> None:
     if not getattr(policy, "tensor_capable", False):
-        raise NotImplementedError(
-            f"{policy.name} has no tensor select/update; {what} drives "
-            "tensor policies only, and host-state policies with their "
-            "sequential loop are ROADMAP queue A item 3")
+        raise ValueError(
+            f"{policy.name} is a host policy; {what} drives tensor "
+            "policies only (run_rounds_host drives host policies)")
 
 
 def stack_states(policy: FunctionalPolicy, seeds: Sequence[int],
@@ -198,3 +198,28 @@ def run_rounds_grid_params(policy: FunctionalPolicy, batch: Round, budgets,
 
     state0 = policy.init_padded(len(hs), int(hs.max()), dev)
     return _scan(step, state0, batch)
+
+
+def run_rounds_host(policy: FunctionalPolicy, rounds: Sequence,
+                    seed: int = 0) -> Dict[str, object]:
+    """The reference's sequential driver, for host-state policies: one
+    seed over a list of ``RoundData``, select then update each round,
+    utilities in float64 (``core.utility.realized_utility``). A tensor
+    policy raises ``ValueError``: ``run_rounds`` drives it."""
+    adapter = PolicyAdapter(policy, seed=seed)
+    t_len = len(rounds)
+    n = policy.spec.num_clients
+    selections = np.zeros((t_len, n), np.int64)
+    utils = np.zeros(t_len)
+    parts = np.zeros(t_len)
+    explored = np.zeros(t_len, bool)
+    for t, rd in enumerate(rounds):
+        assign = adapter.select(rd)
+        adapter.update(rd, assign)
+        utils[t] = realized_utility(assign, rd, policy.spec.sqrt_utility)
+        parts[t] = realized_utility(assign, rd, False)
+        selections[t] = assign
+        explored[t] = adapter.last_explored
+    return {"selections": selections, "utilities": utils,
+            "participants": parts, "explored": explored,
+            "final_state": adapter.state}

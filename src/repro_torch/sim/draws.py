@@ -9,11 +9,19 @@ port's streams are the reference's streams (``repro_torch.random``).
 Seeds may be an int or an int tensor ``(S,)``: every draw then carries a
 leading seed axis. Because the schedule is counter-based, a draw that is
 not made shifts no other stream.
+
+The host simulator (``core.network.HFLNetworkSim``, float64 numpy) takes
+``host_init_draws`` / ``host_round_draws``: float64 numpy views of the
+same float32 draws, made on the CPU. ``host_round_draws`` realizes a
+block of consecutive rounds in one call (a tensor of rounds) and caches
+it, as the reference's block cache does: one round at a time, the
+dispatch of the threefry ops would dominate the host env.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch import random as jr
@@ -88,3 +96,52 @@ def round_draws(seed, t, n: int, m: int, k_mc: int,
         mc_dt=mc(_MCDT),
         mc_ut=mc(_MCUT),
     )
+
+
+# -- host access: float64 numpy views, made on the CPU ----------------------
+
+def _to_host(draws: NamedTuple):
+    """float32 tensors -> float64 numpy arrays; integer draws keep their
+    dtype."""
+    return type(draws)(*(a.numpy().astype(np.float64)
+                         if a.dtype == torch.float32 else a.numpy()
+                         for a in draws))
+
+
+def host_init_draws(seed: int, n: int) -> InitDraws:
+    """Float64 numpy view of the float32 init draws for ``seed``."""
+    return _to_host(init_draws(int(seed), n))
+
+
+# block-aligned cache of realized round draws, kept as float32 (the MC
+# fading tensors dominate; the upcast happens per round on access). A
+# bounded FIFO: sequential consumers touch each block once per seed.
+_BLOCK_TARGET = 2_000_000      # ~floats per cached block
+_block_cache: dict = {}
+_BLOCK_CACHE_MAX = 8
+
+
+def _block_size(n: int, m: int, k_mc: int) -> int:
+    return max(1, min(32, _BLOCK_TARGET // max(1, k_mc * n * m)))
+
+
+def host_round_draws(seed: int, t: int, n: int, m: int,
+                     k_mc: int) -> RoundDraws:
+    """Float64 numpy view of the float32 round-``t`` draws for ``seed``.
+
+    The draws of a block of consecutive rounds are realized in one call
+    (a tensor of rounds gives every draw a leading round axis) and
+    cached, so a sequential ``round(t)`` consumer pays the threefry cost
+    in bulk."""
+    block = _block_size(n, m, k_mc)
+    bi, off = divmod(int(t), block)
+    key = (int(seed), n, m, k_mc, bi)
+    blk = _block_cache.get(key)
+    if blk is None:
+        ts = torch.arange(bi * block, (bi + 1) * block, dtype=torch.int64)
+        blk = RoundDraws(*(a.numpy() for a in round_draws(
+            int(seed), ts, n, m, k_mc)))
+        while len(_block_cache) >= _BLOCK_CACHE_MAX:
+            _block_cache.pop(next(iter(_block_cache)))
+        _block_cache[key] = blk
+    return RoundDraws(*(a[off].astype(np.float64) for a in blk))

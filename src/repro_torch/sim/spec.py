@@ -18,49 +18,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional, Tuple
 
-import numpy as np
-
 from repro_torch.configs.paper_hfl import (BURSTY_1K, METROPOLIS_1K,
                                            MNIST_CONVEX, HFLExperimentConfig)
 from repro_torch.core.network import _dbm_to_watt, context_rate_hi
-
-
-@dataclass(frozen=True)
-class ScenarioSpec:
-    name: str = "paper"
-    mobility: float = 0.15
-    jitter: float = 0.30
-    # ((price, weight), ...) — draw each client's price from discrete tiers
-    price_tiers: Optional[Tuple[Tuple[float, float], ...]] = None
-    # flash-crowd pricing surges (surge_period == 0 disables)
-    surge_period: int = 0
-    surge_len: int = 10
-    surge_frac: float = 0.3
-    surge_discount: float = 0.3
-    # bursty arrival: available during a window of arrival_duty *
-    # arrival_period rounds at a per-client phase (0 disables)
-    arrival_period: int = 0
-    arrival_duty: float = 0.5
-
-
-SCENARIOS: Dict[str, ScenarioSpec] = {
-    "paper": ScenarioSpec(name="paper"),
-    "static-clients": ScenarioSpec(name="static-clients", mobility=0.0,
-                                   jitter=0.05),
-    "high-mobility": ScenarioSpec(name="high-mobility", mobility=0.6,
-                                  jitter=0.5),
-    "tiered-pricing": ScenarioSpec(
-        name="tiered-pricing",
-        price_tiers=((0.5, 0.5), (1.0, 0.3), (2.0, 0.2))),
-    "flash-crowd": ScenarioSpec(name="flash-crowd", surge_period=50),
-}
-
-
-def tier_edges(price_tiers) -> np.ndarray:
-    """Cumulative tier probabilities as float32 (the comparison values
-    the device sim uses, so tier membership matches bitwise)."""
-    w = np.array([w for _, w in price_tiers], np.float64)
-    return (np.cumsum(w) / w.sum()).astype(np.float32)
+from repro_torch.envs.scenarios import SCENARIOS, ScenarioSpec, tier_edges
 
 
 @dataclass(frozen=True)
@@ -174,6 +135,33 @@ class DeviceEnv(NamedTuple):
     scenario: ScenarioSpec
     spec: SimSpec
 
+    def rollout(self, seed: int, horizon: int, device=None) -> list:
+        """``horizon`` rounds of one seed as host ``RoundData`` (float32
+        values), realized by the device simulator on ``device``
+        (``None`` means CUDA, as every entry point of the port): the
+        path of host-state policies on a device env, as the reference's
+        ``DeviceEnv.rollout``."""
+        import torch
+
+        from repro_torch.core.network import RoundData
+        from repro_torch.kernels.common import resolve_device
+        from repro_torch.sim.core import init_statics, sim_round
+        seed_t = torch.as_tensor([int(seed)], dtype=torch.int64,
+                                 device=resolve_device(device))
+        statics = init_statics(self.spec, seed_t)
+        pos, out = statics.pos0, []
+        for t in range(int(horizon)):
+            pos, sr = sim_round(self.spec, seed_t, statics, pos, t)
+            rd = {k: v[0].cpu().numpy() for k, v in sr.round._asdict().items()}
+            out.append(RoundData(
+                t=int(rd["t"]), contexts=rd["contexts"],
+                eligible=rd["eligible"], costs=rd["costs"],
+                outcomes=rd["outcomes"], true_p=rd["true_p"],
+                compute=sr.compute[0].cpu().numpy(),
+                bandwidth=sr.bandwidth[0].cpu().numpy(),
+                latency=rd["latency"]))
+        return out
+
 
 def make(name: str = "paper", cfg: Optional[HFLExperimentConfig] = None,
          mc_true_p: int = 128, true_p: str = "mc") -> DeviceEnv:
@@ -187,15 +175,24 @@ def make(name: str = "paper", cfg: Optional[HFLExperimentConfig] = None,
                                                  true_p))
 
 
-def resolve(env) -> DeviceEnv:
-    """``"device"`` / ``"device:<preset>"`` -> ``DeviceEnv``; a
-    ``DeviceEnv`` passes through. Host environments are not ported."""
-    if isinstance(env, DeviceEnv):
+def resolve(env):
+    """A string selector -> an env object, as the reference's
+    ``sim.resolve``: ``"device"`` / ``"device:<preset>"`` -> the device
+    env (``make``); ``"host:<scenario>"`` or a bare scenario name -> the
+    host env (``envs.make``), except a preset that exists only on the
+    device (``metropolis-1k``, ``bursty-arrival``), which resolves to
+    the device env. Non-strings (``HFLEnv``, ``DeviceEnv``) pass
+    through."""
+    if not isinstance(env, str):
         return env
-    key = str(env).lower()
+    key = env.lower()
     if key == "device":
         return make("paper")
     if key.startswith("device:"):
         return make(key.split(":", 1)[1])
-    raise ValueError(f"env {env!r}: the port runs device environments "
-                     "only ('device' or 'device:<preset>')")
+    from repro_torch import envs
+    if key.startswith("host:"):
+        key = key.split(":", 1)[1]
+    if key in PRESETS and key not in envs.SCENARIOS:
+        return make(key)               # device-only presets
+    return envs.make(key)

@@ -17,6 +17,8 @@ The node table is built in float64 numpy, as the reference's
 (``sim/truep.py``); the integrand is evaluated in float32 on the round's
 tensors, written as XLA executes the jitted reference (``core.fmath``):
 the divisions by ``ln 2`` are multiplications by its float32 reciprocal.
+``host_analytic_true_p`` is the host env's float64 numpy form (a copy of
+the reference's numpy path).
 """
 from __future__ import annotations
 
@@ -63,3 +65,25 @@ def analytic_true_p(bandwidth: torch.Tensor, compute: torch.Tensor,
     w = torch.as_tensor(GL_WEIGHTS, dtype=torch.float32, device=dev)
     total = (w.view_as(f1) * surv).sum(dim=0)
     return torch.clamp(total, 0.0, 1.0)
+
+
+def host_analytic_true_p(bandwidth, compute, g0, *, tx_w: float,
+                         noise_psd_w: float, update_bits: float,
+                         workload: float, deadline_s: float) -> np.ndarray:
+    """The same integral in float64 numpy, per (client, ES) pair of the
+    host env: ``g0`` (N, M), ``bandwidth``/``compute`` broadcasting
+    against it (``bandwidth[:, None]``)."""
+    b = bandwidth * 1.0
+    c = tx_w * g0 / (noise_psd_w * b)
+    slack = deadline_s - workload / np.maximum(compute * 1.0, 1e-9)
+    ln2 = np.log(2.0)
+    rate1 = b * (np.log1p(c * GL_FADING[:, None, None]) / ln2)  # (K, N, M)
+    t = slack - update_bits / np.maximum(rate1, 1e-9)
+    # S(t) = exp(-(2^(a/(b t)) - 1)/c), 0 for t <= 0; the exponent is
+    # clamped so the t -> 0+ tail saturates without an overflow warning
+    spectral = np.minimum(update_bits / (b * np.maximum(t, 1e-30)),
+                          80.0 / ln2)
+    needed = (np.exp(spectral * ln2) - 1.0) / c
+    surv = np.where(t > 0, np.exp(-needed), 0.0)
+    total = np.sum(GL_WEIGHTS[:, None, None] * surv, axis=0)
+    return np.clip(total, 0.0, 1.0)

@@ -8,7 +8,8 @@ backend, draw schedule). Tier 4 on ``paper`` gives the reference's
 selections bitwise and its accuracy within ``SWEEP_ACC_TOL``. Every part
 of a spec the port does not have raises, naming its ROADMAP item, before
 any work starts (the env is never built), and ``device=None`` raises
-without CUDA."""
+without CUDA. The host env, tiers 2 and 3 and grids are held to the
+reference in ``test_torch_api_host.py`` and ``test_torch_grid.py``."""
 import dataclasses
 
 import numpy as np
@@ -134,10 +135,15 @@ def _spec(**kw):
 
 
 REFUSALS = {
-    "host env": (_spec(env=TA.EnvSpec("paper")), "item 2"),
+    # a host env runs now; its fault injection does not yet
+    "host env": (_spec(env=TA.EnvSpec(
+        "paper", faults=FaultSpec(dropout_rate=0.2))), "item 3"),
     "host env, training": (_spec(env=TA.EnvSpec("paper", backend="host"),
-                                 train=TA.TrainSpec()), "item 2"),
-    "grid": (_spec().grid(budget=[1.0, 2.0]), "item 2"),
+                                 train=TA.TrainSpec(transposed_gemm=True)),
+                           "item 2"),
+    # a grid runs now; every cell's refusals come before any work
+    "grid": (_spec(obs=ObsSpec(telemetry=True)).grid(budget=[1.0, 2.0]),
+             "item 3"),
     "transposed logreg": (_spec(train=TA.TrainSpec(transposed_gemm=True)),
                           "item 2"),
     "faults": (_spec(env=TA.EnvSpec(
@@ -169,8 +175,9 @@ def test_refusals_before_any_work(name, monkeypatch):
 
 
 def test_refusals_of_policies_and_types():
-    with pytest.raises(KeyError, match="queue A item 3"):
-        repro_torch.run(_spec(policy=TA.PolicySpec("linucb")),
+    # the registry names all six policies when it refuses an unknown one
+    with pytest.raises(KeyError, match="cocs-phased.*linucb"):
+        repro_torch.run(_spec(policy=TA.PolicySpec("ucb")),
                         device="cpu")
     with pytest.raises(TypeError, match="ExperimentSpec"):
         repro_torch.run({"policy": "cocs"}, device="cpu")

@@ -1,6 +1,7 @@
 """The facade on the card: ``repro_torch.run`` tier 1 on CUDA launches
 the path's kernels (no plain route), matches the CPU run of the same
-spec, and refuses ``use_kernel=False``. These need an NVIDIA GPU; on a
+spec, and refuses ``use_kernel=False``; tiers 2 and 3 and a grid on the
+host env match the CPU and the sequential runs. These need an NVIDIA GPU; on a
 machine without one they skip. On the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_api_cuda.py
@@ -57,3 +58,43 @@ def test_plain_route_refused_on_cuda(dev):
         with pytest.raises(ValueError, match="use_kernel"):
             repro_torch.run(spec, device=dev)
         assert not any(common.LAUNCHES.values())
+
+
+def _host_spec(reg, **kw):
+    return api.ExperimentSpec(policy=api.PolicySpec(reg),
+                              env=api.EnvSpec("paper"),
+                              train=api.TrainSpec(),
+                              eval=api.EvalSpec(eval_every=3), horizon=6,
+                              seeds=(0, 1), **kw)
+
+
+@pytest.mark.parametrize("reg,tier,kernel", [("cocs", 3, "budgeted_topk"),
+                                             ("random", 3, "random_assign"),
+                                             ("cucb", 2, None)])
+def test_host_env_tiers_2_3_match_cpu(dev, reg, tier, kernel):
+    """Tiers 2 and 3 on ``paper``'s host env: the rounds come from the
+    CPU (no B1), B3 aggregates once a round a run (tier 2 runs a seed at
+    a time), the selection kernel launches once a round in tier 3 and
+    none for a host policy; selections and accuracy match the CPU run."""
+    spec = _host_spec(reg)
+    common.reset_launches()
+    got = repro_torch.run(spec, device=dev)
+    assert (got.tier, got.env_backend) == (tier, "host")
+    runs = 1 if tier == 3 else len(spec.seeds)
+    assert common.LAUNCHES["masked_aggregate"] == spec.horizon * runs
+    assert common.LAUNCHES["context_pairwise"] == 0
+    for k in ("budgeted_topk", "random_assign"):
+        assert common.LAUNCHES[k] == (spec.horizon if k == kernel else 0)
+    want = repro_torch.run(spec, device="cpu")
+    assert (want.selections == got.selections).all()
+    assert abs(want.accuracy - got.accuracy).max() <= 1e-3
+
+
+def test_host_grid_matches_sequential_on_cuda(dev):
+    grid = _host_spec("oracle").grid(budget=[3.5, 5.0])
+    common.reset_launches()
+    got = repro_torch.run(grid, device=dev)
+    assert common.LAUNCHES["masked_aggregate"] == grid.base.horizon
+    for cell, r in zip(got.cells, got.results):
+        seq = repro_torch.run(cell, device=dev)
+        assert (seq.selections == r.selections).all()

@@ -151,11 +151,11 @@ def test_run_rounds_grid_params(fig3_rounds):
 def test_engine_refusals():
     spec = TP.PolicySpec.from_experiment(MNIST_CONVEX, 4)
     for name in ("cucb", "linucb", "cocs-phased"):
-        with pytest.raises(KeyError, match="queue A item 3"):
-            TP.make(name, spec)
+        assert not TP.make(name, spec).tensor_capable
     with pytest.raises(KeyError, match="cocs"):
         TP.make("ucb", spec)
-    assert TP.names() == ("cocs", "oracle", "random")
+    assert TP.names() == ("cocs", "cocs-phased", "cucb", "linucb",
+                          "oracle", "random")
 
     @dataclasses.dataclass(frozen=True)
     class HostPolicy(TP.FunctionalPolicy):
@@ -165,9 +165,10 @@ def test_engine_refusals():
         [np.zeros((2,), np.int32), np.zeros((2, 50, 3, 2)),
          np.ones((2, 50, 3), bool), np.ones((2, 50)), np.ones((2, 50, 3)),
          np.ones((2, 50, 3)), np.ones((2, 50, 3))])
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
+    # the tensor engines refuse a host policy (run_rounds_host takes it)
+    with pytest.raises(ValueError, match="run_rounds_host"):
         TP.run_rounds(HostPolicy(spec=spec), batch)
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
+    with pytest.raises(ValueError, match="run_rounds_host"):
         run_bandit_device(HostPolicy(spec=spec), tspec.make("paper").spec,
                           (0,), 2, device="cpu")
     if not torch.cuda.is_available():

@@ -55,7 +55,7 @@ def test_entry_point_asks_for_cuda():
 
 def test_unknown_policy_and_model_are_refused():
     with pytest.raises(KeyError, match="oracle"):
-        tsweep.sweep_experiments(("linucb",), "device:paper", seeds=(0,),
+        tsweep.sweep_experiments(("ucb",), "device:paper", seeds=(0,),
                                  horizon=1, device="cpu")
     with pytest.raises(ValueError, match="cnn"):
         tsweep.sweep_experiments(("cocs",), "device:paper", seeds=(0,),
