@@ -149,9 +149,27 @@ Phases, in order; any failure exits non-zero before a result is printed:
     finite; its @smoke variant on the CPU and on CUDA, selections
     identical, accuracy within 1e-3. The host rollout's seconds and
     each run's rounds/s are printed.
+17. faults and robust Eq. 3 through ``repro_torch.run`` (tier 4,
+    ``metropolis-1k``, logreg, 2 seeds, 20 rounds) under
+    ``FAULT_RATES`` (dropout, stragglers, ES outages, corrupted
+    updates): COCS, Oracle and Random under ``mean``; COCS under
+    ``trimmed_mean``, ``median`` and ``clipped``, with ``FaultSpec()``,
+    with no faults, with corruption alone, and in the ``logreg-t``
+    layout. Gates: B1 and B2 (or Random's scan) once a round, B3 once a
+    round under ``mean`` and never under a robust rule, no walk host
+    sync; ``FaultSpec()`` bitwise ``faults=None``; corruption alone
+    leaves selections, utilities and explored bitwise; the robust
+    rules' accuracies finite; one round's captured Eq. 3 inputs
+    aggregated by each rule on the card within ``RULE_TOL`` of the CPU;
+    B2, P3's walk and Random's scan bitwise their plain versions on the
+    first round where an outage cleared an ES column and left a client
+    row empty (seed and round printed); ``device:paper`` with the four
+    faults, CPU against CUDA, at most 1% of rows differing. Prints
+    rounds/s a run, the fault events, mean's against median's final
+    accuracy, and a local-SGD step in each logreg layout.
 
-Phases 4, 8, 9, 10, 13, 14, 15 and 16 each zero the launch counts just
-before their run and read them just after.
+Phases 4, 8, 9, 10, 13, 14, 15, 16 and 17 each zero the launch counts
+just before their run and read them just after.
 
 The last three lines are the card's name and power limit, a JSON line
 of per-kernel numbers (with the launch floor), and ``{"ok": true,
@@ -2671,6 +2689,311 @@ def paper_panels(dev):
     return out
 
 
+# -- phase 17: faults and robust Eq. 3 -----------------------------------------
+
+# metropolis-1k under all four fault processes, tier 4 through
+# repro_torch.run: logreg, 2 seeds, 20 rounds, 50 samples a client
+FAULT_RATES = dict(dropout_rate=0.05, straggler_rate=0.2, outage_rate=0.05,
+                   corrupt_rate=0.25)
+FAULT_SEEDS = (0, 1)
+FAULT_ROUNDS = 20
+FAULT_EVERY = 10
+FAULT_CAPTURE_ROUND = 10        # the round whose Eq. 3 inputs are captured
+# each rule on the card against the same rule on the CPU, one round's
+# captured inputs: |cuda - cpu| over the largest |cpu| (the sort and the
+# median are exact; the sums and norms reduce in another order)
+RULE_TOL = 1e-5
+
+
+def fault_spec(model="logreg", aggregator="mean", faults="all",
+               scenario="metropolis-1k", policy="cocs"):
+    """Phase 17's spec: tier 4, ``faults`` "all" (``FAULT_RATES``),
+    "off" (``FaultSpec()``), "corrupt" (corruption alone) or None."""
+    from repro_torch import api
+    from repro_torch.sim.faults import FaultSpec
+    f = {"all": FaultSpec(**FAULT_RATES), "off": FaultSpec(),
+         "corrupt": FaultSpec(corrupt_rate=FAULT_RATES["corrupt_rate"]),
+         None: None}[faults]
+    return api.ExperimentSpec(
+        policy=api.PolicySpec(policy),
+        env=api.EnvSpec(scenario, backend="device", faults=f),
+        train=api.TrainSpec(aggregator=aggregator,
+                            transposed_gemm=model == "logreg-t"),
+        eval=api.EvalSpec(eval_every=FAULT_EVERY), horizon=FAULT_ROUNDS,
+        seeds=FAULT_SEEDS)
+
+
+def fault_events(env, dev):
+    """Dropout, straggler, outage and corruption events over phase 17's
+    seeds and rounds, from the shared fault draws on the card."""
+    import torch
+    from repro_torch.core.fmath import f32
+    from repro_torch.sim.draws import fault_draws
+    f = env.spec.faults
+    seeds = torch.as_tensor(FAULT_SEEDS, device=dev)
+    n, m = env.cfg.num_clients, env.cfg.num_edge_servers
+    total = torch.zeros(4, dtype=torch.int64, device=dev)
+    for t in range(FAULT_ROUNDS):
+        fd = fault_draws(seeds, t, n, m, dev)
+        total += torch.stack([(u < f32(r)).sum()
+                              for u, r in ((fd.drop_u, f.dropout_rate),
+                                           (fd.strag_u, f.straggler_rate),
+                                           (fd.out_u, f.outage_rate),
+                                           (fd.corr_u, f.corrupt_rate))])
+    return dict(zip(("dropout", "straggler", "outage", "corruption"),
+                    total.tolist()))
+
+
+def outage_round_kernels(env, dev):
+    """B2, P3's walk (after B2's keys-only launch) and Random's scan
+    against their plain versions on the first round of phase 17's env
+    where an outage cleared an ES column and left a client with no
+    eligible ES: values ``true_p``, the round's costs and eligibility,
+    the config's budget. Returns (seed, round)."""
+    import torch
+    from repro_torch import random as jr
+    from repro_torch.kernels.budgeted_topk.kernel import (
+        budgeted_topk_kernel, budgeted_topk_keys_kernel,
+        flgreedy_walk_kernel)
+    from repro_torch.kernels.budgeted_topk.ref import (budgeted_topk_ref,
+                                                       flgreedy_topk_ref)
+    from repro_torch.kernels.random_assign.kernel import random_assign_kernel
+    from repro_torch.kernels.random_assign.ops import random_draws
+    from repro_torch.kernels.random_assign.ref import random_assign_ref
+    from repro_torch.sim.core import init_statics, round_batch
+    seeds = torch.as_tensor(FAULT_SEEDS, device=dev)
+    statics = init_statics(env.spec, seeds)
+    pos = statics.pos0
+    n, m = env.cfg.num_clients, env.cfg.num_edge_servers
+    for t in range(FAULT_ROUNDS):
+        pos, rd = round_batch(env.spec, seeds, statics, pos, t)
+        cleared = ~rd.eligible.any(dim=1)            # (S, M)
+        empty = ~rd.eligible.any(dim=2)              # (S, N)
+        both = (cleared.any(dim=1) & empty.any(dim=1)).nonzero()
+        if len(both):
+            break
+    else:
+        fail(f"phase 17: no round of {FAULT_ROUNDS} cleared an ES column "
+             f"and left a client row empty")
+    si = int(both[0, 0])
+    v, c, e = rd.true_p.contiguous(), rd.costs.contiguous(), \
+        rd.eligible.contiguous()
+    b = torch.full((len(FAULT_SEEDS), m), env.cfg.budget,
+                   dtype=torch.float32, device=dev)
+    ka, kr = budgeted_topk_kernel(v, c, b, e)
+    ra, rr = budgeted_topk_ref(v, c, b, e)
+    keys, counts = budgeted_topk_keys_kernel(v, c, e)
+    pa, pr = flgreedy_walk_kernel(keys, counts, v, c, b)
+    qa, qr = flgreedy_topk_ref(v, c, b, e)
+    order, gum = random_draws(jr.PRNGKey(seeds + 7), n, m)
+    xa, xr = random_assign_kernel(order, gum, c, b, e)
+    ya, yr = random_assign_ref(order, gum, c, b, e)
+    torch.cuda.synchronize()
+    for name, (a1, r1, a2, r2) in (("budgeted_topk", (ka, kr, ra, rr)),
+                                   ("flgreedy_walk", (pa, pr, qa, qr)),
+                                   ("random_assign", (xa, xr, ya, yr))):
+        if not (torch.equal(a1, a2)
+                and torch.equal(r1.view(torch.int32), r2.view(torch.int32))):
+            fail(f"phase 17: {name} differs from its plain version on the "
+                 f"outage round (seed {FAULT_SEEDS[si]}, round {t})")
+        if bool((a1[si][empty[si]] >= 0).any()) or bool(
+                (a1[si][:, None] == cleared[si].nonzero()[:, 0]).any()):
+            fail(f"phase 17: {name} assigned a client with no eligible ES "
+                 f"or an ES in outage")
+    print(f"  outage round: seed {FAULT_SEEDS[si]}, round {t}: "
+          f"{int(cleared[si].sum())} of {m} ES columns cleared, "
+          f"{int(empty[si].sum())} of {n} client rows empty; B2, P3's walk "
+          f"(after B2's keys-only launch) and Random's scan bitwise their "
+          f"plain versions (picks {int((ka[si] >= 0).sum())}, "
+          f"{int((pa[si] >= 0).sum())}, {int((xa[si] >= 0).sum())})")
+    return FAULT_SEEDS[si], t
+
+
+def rules_cpu_vs_cuda(captured):
+    """Each Eq. 3 rule on the captured (params, deltas, weights) of one
+    round, on the card and on the CPU. Returns the largest gap over the
+    largest value, a rule."""
+    import torch
+    from repro_torch.fed.robust import AGGREGATORS, robust_aggregate_rows
+    edge, deltas, w = captured
+    cpu = lambda x: x.detach().cpu()
+    out = {}
+    for rule in AGGREGATORS:
+        a = robust_aggregate_rows(edge, deltas, w, aggregator=rule)
+        b = robust_aggregate_rows({k: cpu(v) for k, v in edge.items()},
+                                  cpu(deltas), cpu(w), aggregator=rule)
+        gap = max(float((cpu(a[k]) - b[k]).abs().max()
+                        / b[k].abs().max().clamp(min=1e-30)) for k in b)
+        if not gap <= RULE_TOL:
+            fail(f"phase 17: the {rule!r} rule on the card is {gap} away "
+                 f"from the CPU's (relative), above {RULE_TOL}")
+        out[rule] = gap
+    return out
+
+
+def logreg_step_ms(dev, k: int, batch: int = 32, nf: int = 784):
+    """One local-SGD gradient step of ``k`` slots in each layout (CUDA
+    events around loops)."""
+    import torch
+    from repro_torch.models.logistic import (init_logreg, init_logreg_t,
+                                             loss_and_grad)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.rand((k, batch, nf), device=dev, generator=g)
+    y = torch.randint(0, 10, (k, batch), device=dev, generator=g)
+    out = {}
+    for kind, init in (("logreg", init_logreg), ("logreg-t",
+                                                 init_logreg_t)):
+        p = {n: v.expand((k,) + v.shape).contiguous()
+             for n, v in init(nf, device=dev).items()}
+        fn = loss_and_grad(kind)
+        out[kind] = cuda_ms(lambda: fn(p, x, y), iters=100)
+    return out
+
+
+def faults_phase(dev):
+    """Phase 17: faults and robust Eq. 3 on metropolis-1k through
+    ``repro_torch.run`` (tier 4)."""
+    import numpy as np
+    import torch
+    import repro_torch
+    from repro_torch.data.federated import FederatedDataset
+    from repro_torch.fed import batched
+    from repro_torch.sim import spec as simspec
+    from repro_torch.sim.faults import FaultSpec
+    t_phase = time.perf_counter()
+    env = simspec.make("metropolis-1k", faults=FaultSpec(**FAULT_RATES))
+    n = env.cfg.num_clients
+    data = FederatedDataset.synthetic(n, kind="mnist", samples_per_client=50,
+                                      seed=0)
+    data.stacked(dev)
+    fields = ("selections", "utilities", "participants", "explored")
+    out = {"rates": FAULT_RATES, "rounds_per_s": {}, "final_accuracy": {}}
+    captured = []
+    orig = batched.robust_aggregate_rows
+
+    def capture(edge, deltas, w, **kw):
+        if len(captured) == FAULT_CAPTURE_ROUND:
+            captured.append(({k: v.clone() for k, v in edge.items()},
+                             deltas.clone(), w.clone()))
+        else:
+            captured.append(None)
+        return orig(edge, deltas, w, **kw)
+
+    runs = {}
+    cases = [("cocs", "mean", "logreg", "all"),
+             ("oracle", "mean", "logreg", "all"),
+             ("random", "mean", "logreg", "all"),
+             ("cocs", "trimmed_mean", "logreg", "all"),
+             ("cocs", "median", "logreg", "all"),
+             ("cocs", "clipped", "logreg", "all"),
+             ("cocs", "mean", "logreg", "off"),
+             ("cocs", "mean", "logreg", None),
+             ("cocs", "mean", "logreg", "corrupt"),
+             ("cocs", "mean", "logreg-t", "all")]
+    for pol, rule, model, faults in cases:
+        spec = fault_spec(model, rule, faults, policy=pol)
+        key = f"{pol}/{rule}/{model}/faults={faults}"
+        if key == "cocs/mean/logreg/faults=all":
+            batched.robust_aggregate_rows = capture
+        try:
+            res, wall, launches, syncs = counted(
+                lambda: repro_torch.run(spec, data=data, device=dev))
+        finally:
+            batched.robust_aggregate_rows = orig
+        if (res.tier, res.env_backend) != (4, "device"):
+            fail(f"phase 17 {key}: tier {res.tier}, {res.env_backend} env")
+        want = {"context_pairwise": FAULT_ROUNDS,
+                "masked_aggregate": FAULT_ROUNDS if rule == "mean" else 0,
+                "flgreedy_walk": 0}
+        for k in ("budgeted_topk", "random_assign"):
+            want[k] = FAULT_ROUNDS if k in SELECT_KERNELS[pol] else 0
+        bad = {k: launches[k] for k, v in want.items() if launches[k] != v}
+        if bad:
+            fail(f"phase 17 {key}: launches {bad} in {FAULT_ROUNDS} rounds, "
+                 f"expected {want}")
+        if any(syncs.values()):
+            fail(f"phase 17 {key}: a selection walk synced with the host: "
+                 f"{syncs}")
+        if not np.isfinite(res.utilities).all():
+            fail(f"phase 17 {key}: non-finite utilities")
+        runs[key] = res
+        rps = FAULT_ROUNDS / wall
+        out["rounds_per_s"][key] = rps
+        out["final_accuracy"][key] = res.final_accuracy().tolist()
+        print(f"  {key}: {FAULT_ROUNDS} rounds in {wall:.3f} s = "
+              f"{rps:.3f} rounds/s; launches "
+              f"{ {k: v for k, v in launches.items() if v} }; final "
+              f"accuracy {res.final_accuracy().tolist()}")
+    for rule in ("median", "trimmed_mean"):
+        acc = runs[f"cocs/{rule}/logreg/faults=all"].accuracy
+        if not np.isfinite(acc).all():
+            fail(f"phase 17: {rule}'s accuracy is not finite")
+    clean = runs["cocs/mean/logreg/faults=None"]
+    off = runs["cocs/mean/logreg/faults=off"]
+    for f in fields + ("accuracy", "loss"):
+        if not np.array_equal(getattr(clean, f), getattr(off, f)):
+            fail(f"phase 17: FaultSpec() changed {f} against faults=None")
+    corrupt = runs["cocs/mean/logreg/faults=corrupt"]
+    for f in ("selections", "utilities", "explored"):
+        if not np.array_equal(getattr(clean, f), getattr(corrupt, f)):
+            fail(f"phase 17: corruption alone changed {f}")
+    print("  FaultSpec() bitwise equal to faults=None in every output; "
+          "corruption alone leaves selections, utilities and explored "
+          "bitwise")
+    events = fault_events(env, dev)
+    out["events"] = events
+    mean_acc = runs["cocs/mean/logreg/faults=all"].final_accuracy()
+    med_acc = runs["cocs/median/logreg/faults=all"].final_accuracy()
+    print(f"  fault events over {len(FAULT_SEEDS)} seeds x {FAULT_ROUNDS} "
+          f"rounds: {events}; final accuracy under corruption: mean "
+          f"{mean_acc.tolist()}, median {med_acc.tolist()}")
+
+    cap = [c for c in captured if c is not None]
+    if len(cap) != 1:
+        fail(f"phase 17: captured {len(cap)} rounds of Eq. 3 inputs")
+    out["rules_cpu_vs_cuda"] = rules_cpu_vs_cuda(cap[0])
+    slots = cap[0][1].shape[0] * cap[0][1].shape[1]
+    print(f"  round {FAULT_CAPTURE_ROUND}'s Eq. 3 inputs "
+          f"({tuple(cap[0][1].shape)} deltas), each rule on the card "
+          f"against the CPU: {out['rules_cpu_vs_cuda']} <= {RULE_TOL}")
+    out["outage_round"] = outage_round_kernels(env, dev)
+
+    # device:paper with all four faults, the port on the CPU and on CUDA
+    t0 = time.perf_counter()
+    spec = fault_spec(scenario="paper")
+    a = repro_torch.run(spec, device="cpu")
+    b = repro_torch.run(spec, device=dev)
+    rows = int((a.selections != b.selections).any(axis=-1).sum())
+    n_rows = a.selections.shape[0] * a.selections.shape[1]
+    gap = float(np.abs(a.accuracy - b.accuracy).max())
+    print(f"  device:paper with all four faults, COCS, CPU against CUDA: "
+          f"{rows} of {n_rows} selection rows differ, accuracy gap "
+          f"{gap:.3e} ({time.perf_counter() - t0:.1f} s)")
+    if rows > 0.01 * n_rows:
+        fail(f"phase 17: device:paper, {rows} of {n_rows} selection rows "
+             f"differ CPU vs CUDA")
+    if rows == 0 and gap > 1e-3:
+        fail(f"phase 17: device:paper, accuracy gap {gap} with identical "
+             f"selections")
+    out["paper_cpu_vs_cuda"] = dict(rows_differ=rows, accuracy_gap=gap)
+
+    steps = logreg_step_ms(dev, slots)
+    lt = runs["cocs/mean/logreg-t/faults=all"]
+    lr = runs["cocs/mean/logreg/faults=all"]
+    out["logreg_t"] = dict(step_ms=steps, selections_equal=bool(
+        np.array_equal(lt.selections, lr.selections)),
+        accuracy_gap=float(np.abs(lt.accuracy - lr.accuracy).max()))
+    print(f"  transposed_gemm: one local-SGD step of {slots} slots "
+          f"(32 x 784) {steps['logreg-t'] * 1e3:.2f} us against logreg's "
+          f"{steps['logreg'] * 1e3:.2f} us; run {out['rounds_per_s']['cocs/mean/logreg-t/faults=all']:.3f} "
+          f"against {out['rounds_per_s']['cocs/mean/logreg/faults=all']:.3f} "
+          f"rounds/s; selections equal {out['logreg_t']['selections_equal']}"
+          f", accuracy gap {out['logreg_t']['accuracy_gap']:.3e}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 17 in {out['phase_s']:.1f} s")
+    return out
+
+
 # -- phase 11: the serve slice on CPU against CUDA ---------------------------
 
 def lm_cpu_vs_cuda(dev):
@@ -2850,6 +3173,10 @@ def main() -> int:
           "env: paper-fig3, paper-fig4-quick)")
     panels = paper_panels(dev)
 
+    print("phase 17: faults and robust Eq. 3 (repro_torch.run, tier 4, "
+          "metropolis-1k)")
+    faults = faults_phase(dev)
+
     # each kernel's launches on its own main path: B1-B3 and Random's
     # scan the HFL runs of phase 4 (three policies), P3's walk the gated
     # non-convex run, B4 the qwen2 serve (the shape its row is timed at;
@@ -2882,7 +3209,7 @@ def main() -> int:
                       "rounds_per_s": rps, "hfl_cpu_vs_cuda":
                       hfl_cpu_vs_cuda, "nonconvex": nonconvex,
                       "bandit": bandit, "panels": panels,
-                      "serve": serve_rows}))
+                      "faults": faults, "serve": serve_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

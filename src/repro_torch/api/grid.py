@@ -8,9 +8,13 @@ cells (``api.spec``). This module runs them:
     ``deadline``; ``h_t``/``alpha`` on the host tier-1 path) are
     flattened cell-major into the batch axis of the engines, ``B = G * S``
     elements, element ``b = g * S + s``, and run as one batched run;
-  * any other axis (policy, scenario, model, ...) and host-state
-    policies run each cell in turn through ``run``, behind the same
-    ``GridResult``.
+  * any other axis (policy, scenario, model, and the fault and
+    robustness axes ``corrupt_rate``, ``dropout_rate`` and
+    ``aggregator``) and host-state policies run each cell in turn
+    through ``run``, behind the same ``GridResult``. A batched group on
+    a faulty env carries its faults: its rounds hold the latency and
+    outage events, and each element's updates are corrupted from its
+    seed's env seed.
 
 How the batchable axes thread through without a change of shape:
 
@@ -268,21 +272,24 @@ def _fused_grid(key: ExperimentSpec, policy, env, device: bool, seeds,
     from repro_torch.sim.core import init_statics
 
     train = key.train
-    setup = prepare_training(env.cfg, train.model, train.batch_size,
-                             train.batches_per_epoch, data, seeds, dev)
+    setup = prepare_training(
+        env.cfg, train.model_kind, train.batch_size,
+        train.batches_per_epoch, data, seeds, dev, train.aggregator,
+        train.trim_frac, env.spec.faults if device else env.faults)
 
     def tile(a: torch.Tensor) -> torch.Tensor:
         return a.repeat((n_cells,) + (1,) * (a.dim() - 1))
 
+    # each cell repeats its seeds' models, sampler keys and env seeds
+    # (the env seeds draw the update corruption)
     setup = setup._replace(
         edge_seed={k: tile(v) for k, v in setup.edge_seed.items()},
-        base_keys=tile(setup.base_keys))
+        base_keys=tile(setup.base_keys), env_seeds=tile(setup.env_seeds))
     ends = _block_bounds(key.horizon, key.eval.eval_every)
     budgets = full_budgets(policy, budgets_b, dev)
     pstate = policy.init(len(pol_seeds_b), dev, pol_seeds_b)
     if device:
-        seed_t = tile(torch.as_tensor(seeds, dtype=torch.int64,
-                                      device=dev))
+        seed_t = setup.env_seeds
         out = run_fused_device(
             policy, setup, env.spec, seed_t, init_statics(env.spec, seed_t),
             pstate, ends, train.slots_per_es, budgets,

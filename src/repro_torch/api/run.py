@@ -27,12 +27,16 @@ simulator exactly when the scenario exists only there. ``run`` also
 takes an ``ExperimentGrid`` (``spec.grid(...)``) and batches its
 budget, deadline and hypercube cells (``api.grid``).
 
-What the port does not have yet raises ``NotImplementedError`` naming
-its ROADMAP item, before any work, and never runs a substitute:
+Faults (``EnvSpec.faults``) act in either env's rounds (dropout,
+stragglers, ES outages) and in the training tiers' updates (corruption,
+from the env seeds); ``TrainSpec.aggregator`` picks the Eq. 3 rule
+(``fed.robust``) and ``TrainSpec.transposed_gemm`` the reference's
+``logreg-t`` layout. What the port does not have yet raises
+``NotImplementedError`` naming its ROADMAP item, before any work, and
+never runs a substitute:
 
-  * ``TrainSpec.transposed_gemm`` (a TPU layout): queue A item 2;
-  * enabled faults, an enabled ``ObsSpec``, checkpoints, the health
-    guard, and an aggregator other than ``mean``: queue A item 3;
+  * an enabled ``ObsSpec``, checkpoints and resume, and the health
+    guard: queue A item 3;
   * a sharded layout (``ShardSpec`` or ``shard_seeds``) and the
     ``metropolis-100k``/``-1m`` cohorts: queue A item 4.
 
@@ -158,7 +162,7 @@ def build_env(env_spec: EnvSpec):
     cfg = resolve_config(env_spec)
     if _env_backend(env_spec) == "device":
         return simspec.make(scen, cfg, mc_true_p=env_spec.mc_true_p,
-                            true_p=env_spec.true_p)
+                            true_p=env_spec.true_p, faults=env_spec.faults)
     return envs.make(scen, cfg, true_p=env_spec.true_p,
                      faults=env_spec.faults)
 
@@ -188,9 +192,6 @@ def select_tier(spec: ExperimentSpec, policy, env) -> int:
 def _refuse(spec: ExperimentSpec) -> None:
     """Every part of a spec the port cannot run raises here, before any
     work."""
-    faults = spec.env.faults
-    if faults is not None and faults.enabled:
-        raise _not_ported("fault injection (EnvSpec.faults)", 3)
     if spec.obs.enabled:
         raise _not_ported("observability (ObsSpec)", 3)
     ev = spec.eval
@@ -202,13 +203,6 @@ def _refuse(spec: ExperimentSpec) -> None:
     if (shard is not None and (shard.clients > 1 or shard.seeds > 1)) \
             or spec.shard_seeds:
         raise _not_ported("the sharded cohort (ShardSpec, shard_seeds)", 4)
-    if spec.train is not None:
-        if spec.train.aggregator != "mean":
-            raise _not_ported(
-                f"the {spec.train.aggregator!r} aggregator", 3)
-        if spec.train.transposed_gemm:
-            raise _not_ported("the transposed logreg layout "
-                              "(TrainSpec.transposed_gemm)", 2)
     _check_env(spec.env)
 
 
@@ -259,11 +253,14 @@ def run(spec, *, data=None, device=None):
     name = spec.policy.name
     res = sweep_experiments(
         {name: policy}, env, seeds, spec.horizon,
-        model_kind=spec.train.model, batch_size=spec.train.batch_size,
+        model_kind=spec.train.model_kind,
+        batch_size=spec.train.batch_size,
         batches_per_epoch=spec.train.batches_per_epoch,
         eval_every=spec.eval.eval_every, data=data,
         slots_per_es=spec.train.slots_per_es,
-        policy_seed_offset=spec.policy.seed_offset, device=dev)
+        policy_seed_offset=spec.policy.seed_offset,
+        aggregator=spec.train.aggregator, trim_frac=spec.train.trim_frac,
+        device=dev)
     return RunResult(**common, selections=res.selections[name],
                      utilities=res.utilities[name],
                      participants=res.participants[name],

@@ -104,8 +104,8 @@ class EnvSpec:
 
     ``scenario`` names a preset (the host scenarios, or the device-only
     cohorts of ``sim.spec.PRESETS``); ``backend="auto"`` picks the
-    device simulator exactly when the scenario only exists there (the
-    port runs device environments only). ``config`` names a registered
+    device simulator exactly when the scenario only exists there.
+    ``config`` names a registered
     ``HFLExperimentConfig`` (``configs.paper_hfl.CONFIGS``;
     ``None`` -> the scenario's default), ``overrides`` replace individual
     config fields, and ``deadline`` is sugar for overriding
@@ -117,7 +117,8 @@ class EnvSpec:
     plain versions on the CPU, the hand kernels on CUDA), and on CUDA
     refuses ``False``. ``faults`` is an optional ``sim.faults.FaultSpec``
     (client dropout, straggler inflation, ES outages, update
-    corruption); the port does not inject faults yet.
+    corruption), drawn from the shared counter-based schedule, so both
+    envs inject the same events (``None``: no fault draws).
     """
     scenario: str = "paper"
     backend: str = "auto"            # "auto" | "host" | "device"
@@ -142,12 +143,14 @@ class TrainSpec:
     """HFL training in the loop (omit for a bandit-only run).
 
     ``transposed_gemm`` is the reference's transposed local-SGD layout
-    for logreg (a CPU speed option there); the port has the default
-    layout only. ``aggregator`` picks the Eq. 3 aggregation rule:
-    ``"mean"`` is the paper's weighted mean, the one the port has;
-    ``"trimmed_mean"``, ``"median"`` and ``"clipped"`` are the
-    reference's robust rules. ``use_kernel`` is the reference's kernel
-    routing, as ``EnvSpec``'s.
+    (``model="logreg"`` only; model kind ``logreg-t``, ``wt`` (classes,
+    features)). ``aggregator`` picks the Eq. 3 aggregation rule
+    (``fed.robust``): ``"mean"`` is the paper's weighted mean;
+    ``"trimmed_mean"`` (drop the ``trim_frac`` tails per coordinate),
+    ``"median"`` and ``"clipped"`` (each update's L2 norm clipped at the
+    cohort's median) are the robust rules against corrupted updates
+    (``FaultSpec.corrupt_rate``). ``use_kernel`` is the reference's
+    kernel routing, as ``EnvSpec``'s.
     """
     model: str = "logreg"            # "logreg" | "cnn"
     batch_size: int = 32

@@ -75,8 +75,9 @@ def context_rate_hi(cfg: HFLExperimentConfig) -> float:
 class HFLNetworkSim:
     """Deterministic given (cfg, seed). One call to ``round(t)`` per round.
 
-    Fault injection (the reference's ``faults``) is not ported: a sim
-    built with enabled faults raises (ROADMAP queue A item 3)."""
+    ``faults`` (a ``sim.faults.FaultSpec``) injects dropout, straggler
+    and outage events from the shared fault draws, the same events as
+    the device env's (corruption is the training round's)."""
 
     def __init__(self, cfg: HFLExperimentConfig, seed: int = 0,
                  mc_true_p: int = 128, mobility: float = 0.15,
@@ -84,10 +85,6 @@ class HFLNetworkSim:
                  faults=None):
         if true_p_mode not in ("mc", "analytic"):
             raise ValueError(f"unknown true_p mode {true_p_mode!r}")
-        if faults is not None and faults.enabled:
-            raise NotImplementedError(
-                "fault injection in the host env is not ported yet "
-                "(ROADMAP queue A item 3)")
         self.cfg = cfg
         self.seed = int(seed)
         self.mobility = mobility
@@ -181,6 +178,17 @@ class HFLNetworkSim:
         g0 = self._gain0(d)
         tau = self._latency(bandwidth[:, None], compute[:, None], d,
                             dr.fad_dt, dr.fad_ut, g0)
+        if self.faults is not None and self.faults.enabled:
+            # the float32 fault draws as float64; each threshold
+            # downcasts them again (sim.faults._hit)
+            from repro_torch.sim.draws import host_fault_draws
+            from repro_torch.sim.faults import (apply_latency_faults,
+                                                apply_outage)
+            fd = host_fault_draws(self.seed, t, n, m,
+                                  self.faults.env_fields)
+            tau = apply_latency_faults(self.faults, tau, fd.strag_u,
+                                       fd.strag_e, fd.drop_u)
+            eligible = apply_outage(self.faults, eligible, fd.out_u)
         outcomes = (tau <= c.deadline_s).astype(np.float64)
         # contexts: (normalized mean downlink rate, normalized compute)
         mean_rate = self._rate(bandwidth[:, None], d, 1.0, g0)  # E[|h|^2]=1

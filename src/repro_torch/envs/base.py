@@ -46,7 +46,8 @@ class HFLEnv:
     cfg: HFLExperimentConfig
     spec: ScenarioSpec
     true_p: str = "mc"     # "mc" | "analytic" (exact Eq. 6, sim.truep)
-    # a FaultSpec; enabled faults are not ported and raise on make_sim
+    # an optional sim.faults.FaultSpec (frozen, so the env stays
+    # hashable); the device env injects the same fault events
     faults: Optional[object] = None
 
     @property

@@ -18,6 +18,13 @@ for P2; budgeted_topk's sort and flgreedy_walk for P3; random_assign for
 Random), masked_aggregate. The training part, ``fed.batched.train_round``,
 is the host-loop tier's (tier 2) too.
 
+Faults: a device env injects dropout, stragglers and outages in its
+rounds (``sim.core``); update corruption is the training round's, drawn
+from each element's env seed (``seeds`` in ``block_device``,
+``env_seeds`` in ``block_host``), and the spec's ``aggregator`` picks
+the Eq. 3 rule (``fed.robust``: ``mean`` launches masked_aggregate, the
+robust rules are plain PyTorch on the device).
+
 Slot capacity is decided per round: the largest per-ES cohort of that
 round's assignment, or the caller's pinned ``slots``. Padded slots
 carry weight 0, and minibatch keys depend only on the slot's position,
@@ -65,12 +72,15 @@ def train_round_step(policy: FunctionalPolicy, spec: BatchedRoundSpec,
                      pstate, edge: Dict[str, torch.Tensor], rd: Round,
                      stacked, base_keys: torch.Tensor, batch: int,
                      slots: Optional[int] = None,
-                     budgets: Optional[torch.Tensor] = None):
+                     budgets: Optional[torch.Tensor] = None, faults=None,
+                     env_seeds: Optional[torch.Tensor] = None):
     """One training round for all batch elements:
     ``(pstate, edge, rd) -> (pstate', edge', RoundOut)``. ``budgets``
     (S, M) gives each element its per-ES budgets (the grids' budget
-    axis, through ``select_with_budgets``). The ``round.*`` profiler
-    labels mark the stages (``chip_smoke.py --profile`` reads them)."""
+    axis, through ``select_with_budgets``); ``faults`` and ``env_seeds``
+    (S,) go to ``train_round`` (update corruption). The ``round.*``
+    profiler labels mark the stages (``chip_smoke.py --profile`` reads
+    them)."""
     s = rd.costs.shape[0]
     with record_function("round.select"):
         if budgets is None:
@@ -80,7 +90,7 @@ def train_round_step(policy: FunctionalPolicy, spec: BatchedRoundSpec,
         new_pstate = policy.update(pstate, rd, assign, aux)
     new_edge, parts, train_loss = train_round(spec, edge, assign, rd,
                                               stacked, base_keys, batch,
-                                              slots)
+                                              slots, faults, env_seeds)
     # Eq. 19's sqrt(parts / M), the division XLA's reciprocal multiply
     util = (sqrt_rn(mul_rcp(parts, spec.num_edge_servers))
             if policy.spec.sqrt_utility else parts)
@@ -123,7 +133,8 @@ def block_device(policy: FunctionalPolicy, spec: BatchedRoundSpec,
     (B,) give each element its own cell: each round's Eq. 6 outcomes are
     re-thresholded against the element's deadline from the realized
     Eq. 5 latencies, the float32 comparison a ``SimSpec`` with that
-    ``deadline_s`` makes."""
+    ``deadline_s`` makes. The env's faults (``sim_spec.faults``) act in
+    its rounds, and their corruption in training, from ``seeds``."""
     outs = []
     pos = env_pos
     for t in range(lo, hi):
@@ -135,7 +146,8 @@ def block_device(policy: FunctionalPolicy, spec: BatchedRoundSpec,
                         torch.float32))
         pstate, edge, out = train_round_step(policy, spec, pstate, edge,
                                              rd, stacked, base_keys, batch,
-                                             slots, budgets)
+                                             slots, budgets,
+                                             sim_spec.faults, seeds)
         outs.append(out)
     with record_function("round.eval"):
         acc, loss = block_eval(edge, test_x, test_y, spec.model)
@@ -146,18 +158,22 @@ def block_host(policy: FunctionalPolicy, spec: BatchedRoundSpec, pstate,
                edge: Dict[str, torch.Tensor], rounds: Round, stacked,
                base_keys: torch.Tensor, batch: int, test_x: torch.Tensor,
                test_y: torch.Tensor, slots: Optional[int] = None,
-               budgets: Optional[torch.Tensor] = None) -> BlockOut:
+               budgets: Optional[torch.Tensor] = None, faults=None,
+               env_seeds: Optional[torch.Tensor] = None) -> BlockOut:
     """A block over host-realized rounds (tier 3): ``rounds`` has
     (T, S, ...) leaves, one block of the host env's stacked rounds on
     the run's device, each round through the same ``train_round_step``
     as ``block_device``; then one evaluation. ``budgets`` (B, M) as
-    there (a host grid's deadline cells are already in its rounds)."""
+    there (a host grid's deadline cells are already in its rounds);
+    ``faults`` is the host env's (its latency faults are already in the
+    rounds; its corruption is drawn here from ``env_seeds`` (S,))."""
     outs = []
     for t in range(rounds.costs.shape[0]):
         rd = Round(*(f[t] for f in rounds))
         pstate, edge, out = train_round_step(policy, spec, pstate, edge,
                                              rd, stacked, base_keys, batch,
-                                             slots, budgets)
+                                             slots, budgets, faults,
+                                             env_seeds)
         outs.append(out)
     with record_function("round.eval"):
         acc, loss = block_eval(edge, test_x, test_y, spec.model)

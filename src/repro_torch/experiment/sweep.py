@@ -21,8 +21,13 @@ Every seed gets its own realized environment, model init
   ``DeviceEnv.rollout``).
 
 Policies are registry names (COCS with the config's knobs) or built, as
-a dict name -> policy; models: ``logreg`` (784-d "mnist" data) and
-``cnn`` (32x32x3 "cifar" data).
+a dict name -> policy; models: ``logreg`` and its transposed layout
+``logreg-t`` (784-d "mnist" data) and ``cnn`` (32x32x3 "cifar" data).
+
+Faults come from the env (``HFLEnv.faults`` / ``SimSpec.faults``): its
+rounds carry the dropout, straggler and outage events, and every tier
+corrupts updates from the env seeds. ``aggregator``/``trim_frac`` pick
+the Eq. 3 rule (``fed.robust``).
 """
 from __future__ import annotations
 
@@ -41,7 +46,8 @@ from repro_torch.experiment.fused import block_device, block_eval, \
     block_host
 from repro_torch.fed.batched import BatchedRoundSpec, train_round
 from repro_torch.kernels.common import resolve_device
-from repro_torch.models.logistic import init_cnn, init_logreg
+from repro_torch.models.logistic import (MODEL_KINDS, init_cnn,
+                                         init_logreg, init_logreg_t)
 from repro_torch.policies.base import (FunctionalPolicy, PolicyAdapter,
                                        PolicySpec, Round, round_from_arrays,
                                        round_from_data, rounds_to_scan_axes)
@@ -83,30 +89,37 @@ class TrainingSetup(NamedTuple):
     spec: BatchedRoundSpec
     test_x: torch.Tensor
     test_y: torch.Tensor
+    env_seeds: torch.Tensor    # (S,) the env seeds (update corruption)
+    faults: object = None      # the env's FaultSpec, or None
 
 
 def prepare_training(cfg, model_kind: str, batch_size: int,
                      batches_per_epoch: int,
                      data: Optional[FederatedDataset],
-                     seeds: Sequence[int], device) -> TrainingSetup:
+                     seeds: Sequence[int], device,
+                     aggregator: str = "mean", trim_frac: float = 0.1,
+                     faults=None) -> TrainingSetup:
     """Training state shared by every seed: the synthetic dataset
     (``seed=0``; "mnist" for logreg, "cifar" for the CNN) unless given,
     stacked shards on ``device``, per-seed edge models (logreg at zero,
     the CNN from ``init_cnn(PRNGKey(seed))`` at the data's shape),
-    sampler keys ``PRNGKey(seed + 11)`` and the round spec."""
-    if model_kind not in ("logreg", "cnn"):
+    sampler keys ``PRNGKey(seed + 11)``, the round spec with its Eq. 3
+    rule, and the env's ``faults`` (their corruption is drawn from the
+    env seeds, ``seeds``)."""
+    if model_kind not in MODEL_KINDS:
         raise ValueError(f"unknown model kind {model_kind!r}; the port "
-                         "has 'logreg' and 'cnn'")
-    kind = "mnist" if model_kind == "logreg" else "cifar"
+                         f"has {MODEL_KINDS}")
+    kind = "cifar" if model_kind == "cnn" else "mnist"
     data = data or FederatedDataset.synthetic(cfg.num_clients, kind=kind,
                                               seed=0)
     stacked = data.stacked(device)
     batch = int(min(batch_size, int(stacked.sizes.min())))
     steps = cfg.local_epochs * batches_per_epoch
     s, m = len(seeds), cfg.num_edge_servers
-    if model_kind == "logreg":
+    if model_kind != "cnn":
         nf = int(np.prod(data.test_x.shape[1:]))
-        p0 = init_logreg(num_features=nf, device=device)
+        init = init_logreg if model_kind == "logreg" else init_logreg_t
+        p0 = init(num_features=nf, device=device)
         edge = {k: v.expand((s, m) + v.shape).clone()
                 for k, v in p0.items()}
     else:
@@ -118,14 +131,18 @@ def prepare_training(cfg, model_kind: str, batch_size: int,
                 for k in inits[0]}
     spec = BatchedRoundSpec(num_edge_servers=m, steps=steps, lr=cfg.lr,
                             z_min=cfg.min_clients_z, t_es=cfg.t_es,
-                            model=model_kind)
+                            model=model_kind, aggregator=aggregator,
+                            trim_frac=float(trim_frac))
     base_keys = jr.PRNGKey(torch.as_tensor([int(x) + 11 for x in seeds]),
                            device)
     return TrainingSetup(
         data=data, stacked=stacked, batch=batch, steps=steps,
         edge_seed=edge, base_keys=base_keys, spec=spec,
         test_x=torch.as_tensor(data.test_x, device=device),
-        test_y=torch.as_tensor(data.test_y, device=device))
+        test_y=torch.as_tensor(data.test_y, device=device),
+        env_seeds=torch.as_tensor([int(x) for x in seeds],
+                                  dtype=torch.int64, device=device),
+        faults=faults)
 
 
 def _make_policies(policies: Sequence[str], cfg, horizon
@@ -155,6 +172,7 @@ def sweep_experiments(policies: Union[Sequence[str],
                       data: Optional[FederatedDataset] = None,
                       slots_per_es: Optional[int] = None,
                       policy_seed_offset: int = 0,
+                      aggregator: str = "mean", trim_frac: float = 0.1,
                       device=None) -> SweepResult:
     """Run every policy for every seed over ``horizon`` training rounds.
 
@@ -164,7 +182,10 @@ def sweep_experiments(policies: Union[Sequence[str],
     registry names (COCS with the config's knobs) or a dict name ->
     ``FunctionalPolicy``. ``policy_seed_offset`` shifts the policy init
     seeds from the env seeds (``core.utility.POLICY_TABLE``'s offsets);
-    the env, model and sampler streams stay keyed on the env seeds.
+    the env, model and sampler streams stay keyed on the env seeds, and
+    so does update corruption: faults come from the env itself
+    (``HFLEnv.faults`` / ``SimSpec.faults``). ``aggregator`` and
+    ``trim_frac`` pick the Eq. 3 rule (``fed.robust.AGGREGATORS``).
     A host env's rounds come from its rollout cache
     (``envs.cached_rollout``), so the policies of a panel share them.
 
@@ -182,15 +203,17 @@ def sweep_experiments(policies: Union[Sequence[str],
     pols = (dict(policies) if isinstance(policies, dict)
             else _make_policies(policies, cfg, horizon))
     pol_seeds = [x + int(policy_seed_offset) for x in seeds]
+    faults = env.spec.faults if device_env else env.faults
     setup = prepare_training(cfg, model_kind, batch_size,
-                             batches_per_epoch, data, seeds, dev)
+                             batches_per_epoch, data, seeds, dev,
+                             aggregator, trim_frac, faults)
     ends = _block_bounds(horizon, eval_every)
 
     scan_rounds = None
     if not device_env and any(p.tensor_capable for p in pols.values()):
         scan_rounds = round_from_arrays(
             rounds_to_scan_axes(env.rollout_multi(seeds, horizon)), dev)
-    seed_t = torch.as_tensor(seeds, dtype=torch.int64, device=dev)
+    seed_t = setup.env_seeds
     result = SweepResult(policies=list(pols), seeds=seeds,
                          eval_rounds=np.asarray(ends), accuracy={}, loss={},
                          utilities={}, participants={}, selections={},
@@ -256,7 +279,8 @@ def run_fused(pol: FunctionalPolicy, setup: TrainingSetup,
               budgets: Optional[torch.Tensor] = None
               ) -> Dict[str, np.ndarray]:
     """Tier 3: the host env's (T, S, ...) rounds, one ``block_host`` an
-    eval interval."""
+    eval interval (corruption from ``setup.faults`` and its env
+    seeds)."""
     edge = {k: v.clone() for k, v in setup.edge_seed.items()}
     outs, lo = [], 0
     for hi in ends:
@@ -264,7 +288,8 @@ def run_fused(pol: FunctionalPolicy, setup: TrainingSetup,
                          Round(*(f[lo:hi] for f in scan_rounds)),
                          setup.stacked, setup.base_keys, setup.batch,
                          setup.test_x, setup.test_y, slots=slots,
-                         budgets=budgets)
+                         budgets=budgets, faults=setup.faults,
+                         env_seeds=setup.env_seeds)
         pstate, edge = out.policy_state, out.edge_params
         outs.append(out)
         lo = hi
@@ -277,7 +302,8 @@ def run_host(pol: FunctionalPolicy, setup: TrainingSetup, rounds_per_seed,
     """Tier 2: one seed at a time, a ``PolicyAdapter`` selects on each
     ``RoundData`` and the assignment trains through ``train_round`` as a
     (1, N) tensor; utilities in float64 (``realized_utility``), as the
-    reference's ``_run_host``."""
+    reference's ``_run_host``. Corruption comes from ``setup.faults``
+    and each seed's env seed."""
     s, horizon = len(rounds_per_seed), len(rounds_per_seed[0])
     n = pol.spec.num_clients
     dev = setup.base_keys.device
@@ -291,6 +317,7 @@ def run_host(pol: FunctionalPolicy, setup: TrainingSetup, rounds_per_seed,
     for si in range(s):
         adapter = PolicyAdapter(pol, seed=pol_seeds[si])
         base_key = setup.base_keys[si:si + 1]
+        env_seed = setup.env_seeds[si:si + 1]
         edge = {k: v[si:si + 1].clone() for k, v in setup.edge_seed.items()}
         lo = 0
         for ei, hi in enumerate(ends):
@@ -309,7 +336,8 @@ def run_host(pol: FunctionalPolicy, setup: TrainingSetup, rounds_per_seed,
                                     device=dev)
                 edge, p, loss = train_round(setup.spec, edge, a, r,
                                             setup.stacked, base_key,
-                                            setup.batch, slots)
+                                            setup.batch, slots,
+                                            setup.faults, env_seed)
                 parts.append(p)
                 losses.append(loss)
             out["participants"][si, lo:hi] = torch.cat(parts).cpu().numpy()

@@ -1,7 +1,8 @@
 """The batched training round: the static round spec, on-device
 minibatch indices, per-slot local SGD, and ``train_round``, the one
-training body every tier runs (packing, Eq. 2 local SGD, Eq. 6 masks,
-Eq. 3 masked aggregation, cloud sync).
+training body every tier runs (packing, Eq. 2 local SGD, update
+corruption, Eq. 6 masks, Eq. 3 aggregation under the spec's rule, cloud
+sync).
 
 Minibatch indices come from the same counter-based keys as the
 reference's (``fold_in(fold_in(base_key, t), uid)`` with a per-(ES,
@@ -14,6 +15,11 @@ round (the round's largest per-ES cohort, or a pinned
 ``slots_per_es``); the slot order is the reference's ``_pack`` order
 (ascending client index per ES) and padded slots carry weight 0, so the
 capacity changes no result.
+
+Update corruption (``FaultSpec.corrupt_rate``) is drawn from the *env*
+seeds' fault stream (``sim.draws.fault_draws``, tag 11), never the
+policy seeds': a corrupted slot's delta is scaled by ``corrupt_scale``
+before the aggregation, on the device, so selections never see it.
 """
 from __future__ import annotations
 
@@ -27,8 +33,10 @@ from repro_torch import random as jr
 from repro_torch.experiment.packing import es_counts, pack_assignment
 from repro_torch.fed.client import sgd_trajectory
 from repro_torch.fed.edge import broadcast_global, effective_mask_multi
-from repro_torch.kernels.masked_aggregate.ops import masked_aggregate_rows
+from repro_torch.fed.robust import robust_aggregate_rows
 from repro_torch.models.logistic import Params
+from repro_torch.sim.draws import fault_draws
+from repro_torch.sim.faults import corrupt_mask
 
 
 @dataclass(frozen=True)
@@ -39,7 +47,10 @@ class BatchedRoundSpec:
     lr: float
     z_min: int
     t_es: int
-    model: str = "logreg"  # 'logreg' | 'cnn'
+    model: str = "logreg"  # 'logreg' | 'logreg-t' | 'cnn'
+    # the Eq. 3 rule (fed.robust); "mean" is the masked_aggregate path
+    aggregator: str = "mean"
+    trim_frac: float = 0.1
 
 
 def device_batch_indices(base_keys: torch.Tensor, t: torch.Tensor,
@@ -111,15 +122,35 @@ def _capacity(assign: torch.Tensor, m: int, slots: Optional[int]) -> int:
     return slots
 
 
+def corrupt_scale(faults, env_seeds: torch.Tensor, t: torch.Tensor,
+                  ci: torch.Tensor, valid: torch.Tensor,
+                  num_clients: int) -> torch.Tensor:
+    """(S, M, slots) delta scale: ``faults.corrupt_scale`` on a filled
+    slot whose client's update is corrupted this round, 1 elsewhere.
+    ``env_seeds`` and ``t`` are (S,): the events come from each
+    element's env seed and round (``fault_draws(...).corr_u``), so every
+    tier draws the same ones."""
+    corr_u = fault_draws(env_seeds, t, num_clients, ci.shape[1], ci.device,
+                         ("corr_u",)).corr_u                   # (S, N)
+    hit = corrupt_mask(faults, corr_u)
+    slot_c = torch.gather(hit, 1, ci.reshape(ci.shape[0], -1).long()
+                          ).view(ci.shape) & (valid > 0)
+    return torch.where(slot_c, torch.full_like(valid, faults.corrupt_scale),
+                       torch.ones_like(valid))
+
+
 def train_round(spec: BatchedRoundSpec, edge: Dict[str, torch.Tensor],
                 assign: torch.Tensor, rd, stacked, base_keys: torch.Tensor,
-                batch: int, slots: Optional[int] = None):
+                batch: int, slots: Optional[int] = None, faults=None,
+                env_seeds: Optional[torch.Tensor] = None):
     """Train one round's assignment for every batch element:
     ``assign`` (S, N) int, ``rd`` a ``Round`` of (S, ...) tensors (its
     ``t``, ``outcomes`` and ``latency`` are read), ``edge`` (S, M, ...).
-    Returns ``(edge', participants (S,), train_loss (S, 2))``: local
-    SGD's loss at its first and last step, the mean over each element's
-    filled slots (0 where it filled none)."""
+    ``faults`` (a ``FaultSpec``) with a corruption rate scales the
+    corrupted slots' deltas; ``env_seeds`` (S,) then names each
+    element's env seed. Returns ``(edge', participants (S,), train_loss
+    (S, 2))``: local SGD's loss at its first and last step, the mean
+    over each element's filled slots (0 where it filled none)."""
     m, steps = spec.num_edge_servers, spec.steps
     s = assign.shape[0]
     with record_function("round.train"):
@@ -145,13 +176,18 @@ def train_round(spec: BatchedRoundSpec, edge: Dict[str, torch.Tensor],
         ends = step_loss[:, [0, -1]].reshape(s, m * cap, 2)
         train_loss = torch.where(filled, ends, torch.zeros_like(ends)).sum(
             dim=1) / torch.clamp(filled.sum(dim=1), min=1)
+        if faults is not None and faults.corrupt_rate > 0.0:
+            scale = corrupt_scale(faults, env_seeds, rd.t, ci, valid,
+                                  assign.shape[1])
+            deltas.mul_(scale.reshape(flat, 1))
         w = effective_mask_multi(arrived.reshape(s * m, cap),
                                  tau.reshape(s * m, cap),
                                  valid.reshape(s * m, cap),
                                  spec.z_min).reshape(s, m, cap)
     with record_function("round.aggregate"):
-        new_edge = masked_aggregate_rows(edge, deltas.view(s * m, cap, d),
-                                         w)
+        new_edge = robust_aggregate_rows(edge, deltas.view(s * m, cap, d),
+                                         w, aggregator=spec.aggregator,
+                                         trim_frac=spec.trim_frac)
         if (int(rd.t[0]) + 1) % spec.t_es == 0:
             new_edge = broadcast_global(new_edge)
     parts = (arrived * valid).sum(dim=(1, 2))

@@ -21,6 +21,21 @@ def from_jax_params(tree: Mapping[str, np.ndarray], device=None
             for k, v in tree.items()}
 
 
+def logreg_t_params_from_jax(tree: Mapping[str, np.ndarray], device=None
+                             ) -> dict:
+    """The reference's transposed logreg params (``init_logreg_t``:
+    ``wt`` (..., classes, features), ``b``), as numpy, -> the port's
+    ``logreg-t`` params, the same layout."""
+    if set(tree) != {"wt", "b"}:
+        raise ValueError(f"logreg-t params are 'wt' and 'b', got "
+                         f"{sorted(tree)}")
+    wt, b = np.asarray(tree["wt"]), np.asarray(tree["b"])
+    if wt.shape[-2] != b.shape[-1]:
+        raise ValueError(f"wt is (..., classes, features): {wt.shape} "
+                         f"against b {b.shape}")
+    return from_jax_params({"wt": wt, "b": b}, device)
+
+
 def cnn_params_from_jax(tree: Mapping[str, np.ndarray], height: int = 32,
                         width: int = 32, device=None) -> dict:
     """The reference's CNN params (``init_cnn``: HWIO convolutions, ``f1``

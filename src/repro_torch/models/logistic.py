@@ -3,8 +3,10 @@ convex "MNIST" setting of Figs. 3/4) and the CNN of the non-convex
 "CIFAR-10" setting (Figs. 5-7).
 
 Parameters are plain dicts. Logistic regression is ``{"w": (F, C), "b":
-(C,)}``; its functions take optional leading batch axes on the
-parameters (one model per (seed, ES) or per slot). The CNN is two 5x5
+(C,)}``, and in the reference's transposed layout (``logreg-t``,
+``TrainSpec.transposed_gemm``) ``{"wt": (C, F), "b": (C,)}``; their
+functions take optional leading batch axes on the parameters (one
+model per (seed, ES) or per slot). The CNN is two 5x5
 convolutions of 64 channels (``SAME``, each with ReLU and a 2x2 max-pool)
 and three dense layers (384, 192, classes). Its inputs are NHWC, as the
 reference's; its parameters are in PyTorch's layout: convolutions OIHW,
@@ -23,6 +25,7 @@ import torch.nn.functional as F
 from repro_torch import random as jr
 
 Params = Dict[str, torch.Tensor]
+MODEL_KINDS = ("logreg", "logreg-t", "cnn")
 
 
 def init_logreg(num_features: int = 784, num_classes: int = 10,
@@ -37,6 +40,22 @@ def init_logreg(num_features: int = 784, num_classes: int = 10,
 def logreg_logits(params: Params, x: torch.Tensor) -> torch.Tensor:
     """x (..., B, F) @ w (..., F, C) + b (..., C) -> (..., B, C)."""
     return torch.matmul(x, params["w"]) + params["b"][..., None, :]
+
+
+def init_logreg_t(num_features: int = 784, num_classes: int = 10,
+                  device=None) -> Params:
+    """The transposed layout: ``wt`` (classes, features), zeros
+    (``wt == w.T`` of ``init_logreg``)."""
+    return {"wt": torch.zeros((num_classes, num_features),
+                              dtype=torch.float32, device=device),
+            "b": torch.zeros((num_classes,), dtype=torch.float32,
+                             device=device)}
+
+
+def logreg_t_logits(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """x (..., B, F) @ wt (..., C, F)^T + b (..., C) -> (..., B, C)."""
+    return (torch.matmul(x, params["wt"].transpose(-1, -2))
+            + params["b"][..., None, :])
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor
@@ -66,6 +85,20 @@ def logreg_loss_and_grad(params: Params, x: torch.Tensor,
     gw = torch.matmul(x.transpose(-1, -2), g)
     gb = g.sum(dim=-2)
     return softmax_xent(logits, y), {"w": gw, "b": gb}
+
+
+def logreg_t_loss_and_grad(params: Params, x: torch.Tensor,
+                           y: torch.Tensor) -> Tuple[torch.Tensor, Params]:
+    """``logreg_loss_and_grad`` in the transposed layout: the weight
+    gradient is ``g^T x`` (K, C, F)."""
+    logits = logreg_t_logits(params, x)
+    b = x.shape[-2]
+    p = torch.softmax(logits, dim=-1)
+    onehot = torch.nn.functional.one_hot(y.long(), p.shape[-1]).to(p.dtype)
+    g = (p - onehot) / b
+    gwt = torch.matmul(g.transpose(-1, -2), x)
+    gb = g.sum(dim=-2)
+    return softmax_xent(logits, y), {"wt": gwt, "b": gb}
 
 
 def cnn_from_reference_layout(tree: Dict[str, torch.Tensor], height: int,
@@ -147,6 +180,8 @@ def batched_logits(kind: str, params: Params, x: torch.Tensor
     shared -> (S, T, classes)."""
     if kind == "logreg":
         return logreg_logits(params, x)
+    if kind == "logreg-t":
+        return logreg_t_logits(params, x)
     from torch.func import vmap
     return vmap(cnn_logits, in_dims=(0, None))(params, x)
 
@@ -154,16 +189,19 @@ def batched_logits(kind: str, params: Params, x: torch.Tensor
 def loss_and_grad(kind: str) -> Callable:
     """The batched ``(params, x, y) -> (loss (K,), grads)`` of a model."""
     return {"logreg": logreg_loss_and_grad,
+            "logreg-t": logreg_t_loss_and_grad,
             "cnn": cnn_loss_and_grad}[kind]
 
 
 def make_loss_fn(kind: str) -> Callable:
-    """kind: 'logreg' | 'cnn'. Returns ``loss(params, batch)`` -> the
-    mean cross-entropy of one model (or of per-model logreg batches)."""
-    logits = {"logreg": logreg_logits, "cnn": cnn_logits}.get(kind)
+    """kind: 'logreg' | 'logreg-t' | 'cnn'. Returns ``loss(params,
+    batch)`` -> the mean cross-entropy of one model (or of per-model
+    logreg batches)."""
+    logits = {"logreg": logreg_logits, "logreg-t": logreg_t_logits,
+              "cnn": cnn_logits}.get(kind)
     if logits is None:
         raise ValueError(f"unknown model kind {kind!r}; the port has "
-                         "'logreg' and 'cnn'")
+                         f"{MODEL_KINDS}")
 
     def loss(params: Params, batch: Dict[str, torch.Tensor]):
         return softmax_xent(logits(params, batch["x"]), batch["y"])

@@ -28,6 +28,7 @@ from repro_torch.kernels.context_pairwise.ops import pairwise_context
 from repro_torch.kernels.context_pairwise.ref import latency
 from repro_torch.policies.base import Round
 from repro_torch.sim import draws
+from repro_torch.sim.faults import apply_latency_faults, apply_outage
 from repro_torch.sim.spec import SimSpec
 from repro_torch.sim.truep import analytic_true_p
 
@@ -91,12 +92,16 @@ def init_statics(spec: SimSpec, seeds: torch.Tensor) -> SimStatics:
 
 def sim_round(spec: SimSpec, seeds: torch.Tensor, statics: SimStatics,
               pos: torch.Tensor, t: int,
-              dr: Optional[draws.RoundDraws] = None
+              dr: Optional[draws.RoundDraws] = None,
+              fd: Optional[draws.FaultDraws] = None
               ) -> Tuple[torch.Tensor, SimRound]:
     """One round for all seeds: ``(pos, t) -> (pos', round)``.
 
-    ``dr`` overrides the internally derived draws (tests feed the
-    reference's ``round_draws`` through it)."""
+    ``dr``/``fd`` override the internally derived round and fault draws
+    (tests feed the reference's through them). The spec's faults act
+    after bursty arrival and before the Eq. 6 outcomes: latency faults
+    on ``tau``, outages on the eligibility; ``true_p`` stays
+    fault-free, as the reference's."""
     n, m = pos.shape[-2], spec.num_edge_servers
     dev = pos.device
     analytic = spec.true_p == "analytic"
@@ -133,6 +138,13 @@ def sim_round(spec: SimSpec, seeds: torch.Tensor, statics: SimStatics,
         active = ((t - statics.arrival_phase) % spec.arrival_period
                   < spec.arrival_len)
         eligible = eligible & active[..., None]
+    faults = spec.faults
+    if faults is not None and faults.enabled:
+        if fd is None:
+            fd = draws.fault_draws(seeds, t, n, m, dev, faults.env_fields)
+        tau = apply_latency_faults(faults, tau, fd.strag_u, fd.strag_e,
+                                   fd.drop_u)
+        eligible = apply_outage(faults, eligible, fd.out_u)
     outcomes = (tau <= spec.deadline_s).to(torch.float32)
     phi_rate = torch.clamp(mul_rcp(mean_rate, spec.rate_hi), 0.0, 1.0)
     phi_comp = mul_rcp(compute - spec.compute_low,

@@ -10,16 +10,19 @@ Seeds may be an int or an int tensor ``(S,)``: every draw then carries a
 leading seed axis. Because the schedule is counter-based, a draw that is
 not made shifts no other stream.
 
+The fault streams (tags 7-11, ``fault_draws``) are drawn only when a
+``FaultSpec`` enables their process.
+
 The host simulator (``core.network.HFLNetworkSim``, float64 numpy) takes
-``host_init_draws`` / ``host_round_draws``: float64 numpy views of the
-same float32 draws, made on the CPU. ``host_round_draws`` realizes a
+``host_init_draws`` / ``host_round_draws`` / ``host_fault_draws``:
+float64 numpy views of the same float32 draws, made on the CPU. ``host_round_draws`` realizes a
 block of consecutive rounds in one call (a tensor of rounds) and caches
 it, as the reference's block cache does: one round at a time, the
 dispatch of the threefry ops would dominate the host env.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -32,6 +35,9 @@ SCHEDULE_ID = "threefry2x32/(seed,t,tag)/v1"
 _INIT, _ROUND = 0, 1
 _POS, _PRICE, _BW0, _COMP0, _PERM, _PHASE = 0, 1, 2, 3, 4, 5
 _MOVE, _BWJ, _COMPJ, _FDT, _FUT, _MCDT, _MCUT = 0, 1, 2, 3, 4, 5, 6
+# fault-injection streams (sim.faults), appended: with faults off they
+# are never drawn, and no other stream moves
+_FDROP, _FSTRAG_U, _FSTRAG_E, _FOUT, _FCORR = 7, 8, 9, 10, 11
 
 
 class InitDraws(NamedTuple):
@@ -53,6 +59,18 @@ class RoundDraws(NamedTuple):
     fad_ut: torch.Tensor     # (..., N, M) Exp(1) — uplink |h|^2
     mc_dt: torch.Tensor      # (..., K, N, M) Exp(1) — true_p MC, downlink
     mc_ut: torch.Tensor      # (..., K, N, M) Exp(1) — true_p MC, uplink
+
+
+class FaultDraws(NamedTuple):
+    """Per-round fault-event draws (all unit-scale). Events threshold
+    ``float32(u) < float32(rate)`` on both envs (``sim.faults``), so
+    they are the same events on the float64 host env and on the device
+    env. A field that was not asked for is None."""
+    drop_u: Optional[torch.Tensor]     # (..., N) U[0,1) — client dropout
+    strag_u: Optional[torch.Tensor]    # (..., N) U[0,1) — straggler events
+    strag_e: Optional[torch.Tensor]    # (..., N) Exp(1) — inflation
+    out_u: Optional[torch.Tensor]      # (..., M) U[0,1) — ES outages
+    corr_u: Optional[torch.Tensor]     # (..., N) U[0,1) — corrupted updates
 
 
 def init_key(seed, device=None) -> torch.Tensor:
@@ -98,6 +116,26 @@ def round_draws(seed, t, n: int, m: int, k_mc: int,
     )
 
 
+_FAULT_TAGS = {"drop_u": (_FDROP, False), "strag_u": (_FSTRAG_U, False),
+               "strag_e": (_FSTRAG_E, False), "out_u": (_FOUT, True),
+               "corr_u": (_FCORR, False)}
+
+
+def fault_draws(seed, t, n: int, m: int, device=None,
+                fields: Sequence[str] = FaultDraws._fields) -> FaultDraws:
+    """The round's fault draws, the reference's ``fault_draws``. Only
+    the streams named in ``fields`` are drawn (the rest are None): each
+    has its own tag, so what is drawn does not depend on what else is
+    (the reference's unused streams are dead code under ``jit``)."""
+    k = round_key(seed, t, device)
+    out = {}
+    for f in fields:
+        tag, per_es = _FAULT_TAGS[f]
+        draw = jr.exponential if f == "strag_e" else jr.uniform
+        out[f] = draw(jr.fold_in(k, tag), (m if per_es else n,))
+    return FaultDraws(**{f: out.get(f) for f in FaultDraws._fields})
+
+
 # -- host access: float64 numpy views, made on the CPU ----------------------
 
 def _to_host(draws: NamedTuple):
@@ -111,6 +149,16 @@ def _to_host(draws: NamedTuple):
 def host_init_draws(seed: int, n: int) -> InitDraws:
     """Float64 numpy view of the float32 init draws for ``seed``."""
     return _to_host(init_draws(int(seed), n))
+
+
+def host_fault_draws(seed: int, t: int, n: int, m: int,
+                     fields: Sequence[str] = FaultDraws._fields
+                     ) -> FaultDraws:
+    """Float64 numpy view of the float32 round-``t`` fault draws (one
+    (N,) or (M,) vector a stream, so no block cache)."""
+    fd = fault_draws(int(seed), int(t), n, m, fields=fields)
+    return FaultDraws(*(None if a is None else a.numpy().astype(np.float64)
+                        for a in fd))
 
 
 # block-aligned cache of realized round draws, kept as float32 (the MC

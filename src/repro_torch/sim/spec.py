@@ -22,6 +22,7 @@ from repro_torch.configs.paper_hfl import (BURSTY_1K, METROPOLIS_1K,
                                            MNIST_CONVEX, HFLExperimentConfig)
 from repro_torch.core.network import _dbm_to_watt, context_rate_hi
 from repro_torch.envs.scenarios import SCENARIOS, ScenarioSpec, tier_edges
+from repro_torch.sim.faults import FaultSpec
 
 
 @dataclass(frozen=True)
@@ -58,6 +59,9 @@ class SimSpec:
     # sim.truep; no fading-pair draws)
     true_p: str = "mc"
     mc_true_p: int = 128
+    # optional fault injection (sim.faults); None or all-zero rates draw
+    # nothing
+    faults: Optional[FaultSpec] = None
 
     def min_cost(self) -> float:
         """Analytic lower bound on any realized per-client cost:
@@ -72,10 +76,12 @@ class SimSpec:
 
     @classmethod
     def from_env(cls, cfg: HFLExperimentConfig, scen: ScenarioSpec,
-                 mc_true_p: int = 128, true_p: str = "mc") -> "SimSpec":
+                 mc_true_p: int = 128, true_p: str = "mc",
+                 faults: Optional[FaultSpec] = None) -> "SimSpec":
         """The spec of ``cfg`` under ``scen``. ``true_p`` is ``"mc"``
         (the Monte-Carlo estimate over ``mc_true_p`` fading pairs) or
-        ``"analytic"`` (the Eq. 6 integral, ``sim.truep``)."""
+        ``"analytic"`` (the Eq. 6 integral, ``sim.truep``); ``faults``
+        an optional ``sim.faults.FaultSpec``."""
         if true_p not in ("mc", "analytic"):
             raise ValueError(f"unknown true_p mode {true_p!r}")
         tiers = scen.price_tiers
@@ -106,7 +112,7 @@ class SimSpec:
             arrival_len=(max(1, int(round(scen.arrival_duty
                                           * scen.arrival_period)))
                          if scen.arrival_period > 0 else 1),
-            true_p=true_p, mc_true_p=mc_true_p)
+            true_p=true_p, mc_true_p=mc_true_p, faults=faults)
 
 
 METROPOLIS_SCEN = ScenarioSpec(name="metropolis-1k", mobility=0.3,
@@ -164,15 +170,17 @@ class DeviceEnv(NamedTuple):
 
 
 def make(name: str = "paper", cfg: Optional[HFLExperimentConfig] = None,
-         mc_true_p: int = 128, true_p: str = "mc") -> DeviceEnv:
+         mc_true_p: int = 128, true_p: str = "mc",
+         faults: Optional[FaultSpec] = None) -> DeviceEnv:
     """A preset's device environment; ``cfg`` replaces its experiment
-    config (``make("paper", CIFAR10_NONCONVEX)``) and ``true_p`` picks
-    the participation estimator (``"mc"`` or ``"analytic"``), as the
-    reference's ``sim.make``."""
+    config (``make("paper", CIFAR10_NONCONVEX)``), ``true_p`` picks
+    the participation estimator (``"mc"`` or ``"analytic"``) and
+    ``faults`` injects the ``FaultSpec``'s faults, as the reference's
+    ``sim.make``."""
     pcfg, scen = preset(name)
     cfg = pcfg if cfg is None else cfg
     return DeviceEnv(cfg, scen, SimSpec.from_env(cfg, scen, mc_true_p,
-                                                 true_p))
+                                                 true_p, faults))
 
 
 def resolve(env):

@@ -98,3 +98,37 @@ def sweeps_agree(want, got, policies=SWEEP_POLICIES) -> None:
             assert np.all(np.isfinite(g)), (p, f)
             assert np.abs(w - g).max() <= SWEEP_ACC_TOL, (p, f)
         assert (got.selections[p] >= 0).any(), p
+
+
+def runs_agree(want, got) -> None:
+    """A reference ``RunResult`` against the port's: tier and backend;
+    the per-round fields bitwise, in the reference's dtypes; accuracy
+    and loss within ``SWEEP_ACC_TOL`` where finite, and non-finite at
+    the same places."""
+    assert (got.tier, got.env_backend) == (want.tier, want.env_backend)
+    for f in SWEEP_FIELDS:
+        w, g = np.asarray(getattr(want, f)), getattr(got, f)
+        assert g.dtype == w.dtype and np.array_equal(w, g), f
+    if want.accuracy is None:
+        assert got.accuracy is None
+        return
+    for f in ("accuracy", "loss"):
+        w, g = np.asarray(getattr(want, f)), getattr(got, f)
+        assert g.shape == w.shape
+        assert np.array_equal(np.isfinite(w), np.isfinite(g)), f
+        ok = np.isfinite(w)
+        assert np.abs(w[ok] - g[ok]).max(initial=0.0) <= SWEEP_ACC_TOL, f
+
+
+def panel_cells(suite, display, axes=(("corrupt_rate", (0.0, 0.25)),
+                                      ("aggregator", ("mean",
+                                                      "trimmed_mean",
+                                                      "median")))):
+    """A fault suite's ``@smoke`` cells for one of its policies, as its
+    grid expands them, keyed by their axis values."""
+    from dataclasses import replace
+    base = replace(suite.resolved_base(smoke=True),
+                   policy=dict(suite.policies)[display])
+    cells = base.grid(**{k: list(v) for k, v in axes}).expand()
+    return {(c.env.faults.corrupt_rate, c.train.aggregator): c
+            for c in cells}

@@ -1,8 +1,10 @@
 """The facade on the card: ``repro_torch.run`` tier 1 on CUDA launches
 the path's kernels (no plain route), matches the CPU run of the same
 spec, and refuses ``use_kernel=False``; tiers 2 and 3 and a grid on the
-host env match the CPU and the sequential runs. These need an NVIDIA GPU; on a
-machine without one they skip. On the card:
+host env match the CPU and the sequential runs; faulty tiers 3 and 4
+under each Eq. 3 rule (B3 under ``mean`` only) and ``logreg-t`` match
+the CPU, and each rule on the card matches it on the CPU. These need an
+NVIDIA GPU; on a machine without one they skip. On the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_api_cuda.py
 """
@@ -98,3 +100,75 @@ def test_host_grid_matches_sequential_on_cuda(dev):
     for cell, r in zip(got.cells, got.results):
         seq = repro_torch.run(cell, device=dev)
         assert (seq.selections == r.selections).all()
+
+
+# -- faults and robust Eq. 3 on the card --------------------------------------
+
+
+def _faulty_spec(aggregator="mean", env="device", **kw):
+    from repro_torch.sim.faults import FaultSpec
+    faults = FaultSpec(dropout_rate=0.2, straggler_rate=0.3,
+                       outage_rate=0.15, corrupt_rate=0.25)
+    return api.ExperimentSpec(
+        policy=api.PolicySpec("cocs"),
+        env=api.EnvSpec("paper", backend=env, faults=faults,
+                        overrides=(("lr", 0.01),)),
+        train=api.TrainSpec(aggregator=aggregator, **kw),
+        eval=api.EvalSpec(eval_every=4), horizon=8, seeds=(0, 1))
+
+
+@pytest.mark.parametrize("aggregator", ["mean", "trimmed_mean", "median",
+                                        "clipped"])
+def test_faulty_tier4_matches_cpu(dev, aggregator):
+    """Tier 4 on ``device:paper`` with all four faults: B1 and B2 once a
+    round, B3 once a round under ``mean`` and never under a robust rule,
+    no walk host sync; the CPU run within phase 5's rule."""
+    spec = _faulty_spec(aggregator)
+    common.reset_launches()
+    for k in topk_ops.WALK_SYNCS:
+        topk_ops.WALK_SYNCS[k] = 0
+    got = repro_torch.run(spec, device=dev)
+    assert got.tier == 4
+    h = spec.horizon
+    assert common.LAUNCHES["context_pairwise"] == h
+    assert common.LAUNCHES["budgeted_topk"] == h
+    assert common.LAUNCHES["masked_aggregate"] == (
+        h if aggregator == "mean" else 0)
+    assert not any(topk_ops.WALK_SYNCS.values())
+    want = repro_torch.run(spec, device="cpu")
+    rows = int((want.selections != got.selections).any(axis=-1).sum())
+    assert rows <= 0.01 * got.selections.shape[0] * got.selections.shape[1]
+    if rows == 0:
+        assert abs(want.accuracy - got.accuracy).max() <= 1e-3
+
+
+def test_faulty_host_tier3_and_logreg_t_match_cpu(dev):
+    """Tier 3 on the faulty host env, in the ``logreg-t`` layout."""
+    spec = _faulty_spec(env="host", transposed_gemm=True)
+    common.reset_launches()
+    got = repro_torch.run(spec, device=dev)
+    assert (got.tier, got.env_backend) == (3, "host")
+    assert common.LAUNCHES["masked_aggregate"] == spec.horizon
+    want = repro_torch.run(spec, device="cpu")
+    assert (want.selections == got.selections).all()
+    assert abs(want.accuracy - got.accuracy).max() <= 1e-3
+
+
+def test_robust_rules_on_card_match_cpu(dev):
+    """Each rule on the same inputs on the card and on the CPU."""
+    from repro_torch.fed.robust import AGGREGATORS, robust_aggregate_rows
+    g = torch.Generator().manual_seed(0)
+    s, m, slots, d = 2, 3, 7, 7850
+    edge = {"w": torch.randn(s, m, 784, 10, generator=g),
+            "b": torch.randn(s, m, 10, generator=g)}
+    deltas = torch.randn(s * m, slots, d, generator=g)
+    w = (torch.rand(s, m, slots, generator=g) < 0.6).float()
+    w[0, 1] = 0.0                       # an ES with no contributor
+    for rule in AGGREGATORS:
+        a = robust_aggregate_rows({k: v.to(dev) for k, v in edge.items()},
+                                  deltas.to(dev), w.to(dev),
+                                  aggregator=rule)
+        b = robust_aggregate_rows(edge, deltas, w, aggregator=rule)
+        for k in b:
+            gap = (a[k].cpu() - b[k]).abs().max() / b[k].abs().max()
+            assert gap <= 1e-5, (rule, k)

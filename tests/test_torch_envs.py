@@ -111,7 +111,13 @@ def test_block_draws_equal_per_round_draws(k_mc):
 
 
 def test_faults_refused():
+    """Rates outside [0, 1] are refused when the spec is built; a valid
+    ``FaultSpec`` now runs in the host env (its parity with the
+    reference: ``test_torch_faults.py``)."""
     from repro_torch.sim.faults import FaultSpec
-    env = TE.make("paper", faults=FaultSpec(dropout_rate=0.1))
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        env.rollout(0, 1)
+    with pytest.raises(ValueError, match="dropout_rate"):
+        FaultSpec(dropout_rate=1.5)
+    with pytest.raises(ValueError, match="unknown field"):
+        FaultSpec.from_dict({"droput_rate": 0.1})
+    rd = TE.make("paper", faults=FaultSpec(dropout_rate=1.0)).rollout(0, 1)
+    assert np.isinf(rd[0].latency).all() and not rd[0].outcomes.any()
