@@ -167,9 +167,32 @@ Phases, in order; any failure exits non-zero before a result is printed:
     faults, CPU against CUDA, at most 1% of rows differing. Prints
     rounds/s a run, the fault events, mean's against median's final
     accuracy, and a local-SGD step in each logreg layout.
+18. resilience and observability through ``repro_torch.run``:
+    ``metropolis-1k`` tier 4 (logreg, 2 seeds, 20 rounds in 4
+    intervals) for COCS, Oracle and Random, and ``paper``'s COCS on tier
+    3: two uninterrupted runs bitwise equal, then killed after 1, 2 and
+    3 intervals (``stop_after_blocks``) and resumed, each bitwise the
+    uninterrupted run, B1, the selection's kernel and B3 launched over
+    the two halves as often as in the uninterrupted run, no walk host
+    sync. The CNN (lr 0.005, 4 rounds): two runs bitwise equal, then a
+    resume gated bitwise (under cuDNN's deterministic algorithms where
+    the default ones differ run to run, the differing field printed); at
+    its configuration's lr 0.1 (R11) the health guard's ``record`` names
+    the non-finite leaves and ``halt`` raises; a clean logreg run
+    records none. Taps on: decisions bitwise, the counts equal to the
+    host oracle; ``device:paper`` under ``FAULT_RATES`` with ``median``,
+    the ``agg_adjusted`` and ``corrupted`` series equal on the card and
+    the CPU. A traced run with checkpoints writes ``run.resolve``,
+    ``run.dispatch``, ``train.prepare``, 4 ``fused_block_device`` spans
+    with their dispatch/execute split and 4 ``checkpoint.save`` spans,
+    which ``python -m repro_torch.obs`` reports and exports; an
+    ``ObsSpec.jax_profiler`` directory receives a ``torch.profiler``
+    trace naming B1's kernel. Prints, not gated: rounds/s with
+    checkpoints, health, taps, checkpoints and tracer on against off,
+    and a checkpoint write's ms and bytes.
 
-Phases 4, 8, 9, 10, 13, 14, 15, 16 and 17 each zero the launch counts
-just before their run and read them just after.
+Phases 4, 8, 9, 10, 13, 14, 15, 16, 17 and 18 each zero the launch
+counts just before their run and read them just after.
 
 The last three lines are the card's name and power limit, a JSON line
 of per-kernel numbers (with the launch floor), and ``{"ok": true,
@@ -2994,6 +3017,370 @@ def faults_phase(dev):
     return out
 
 
+# -- phase 18: resilience and observability ----------------------------------
+
+# metropolis-1k tier 4 (logreg, 2 seeds, 50 samples a client): 20 rounds
+# in 4 intervals, so kills after 1, 2 and 3 intervals leave a first, a
+# middle and a last-but-one checkpoint
+RESUME_SEEDS = (0, 1)
+RESUME_ROUNDS = 20
+RESUME_EVERY = 5
+RESUME_KILLS = (1, 2, 3)
+RUN_FIELDS = ("selections", "utilities", "participants", "explored",
+              "accuracy", "loss")
+# the CNN's determinism probe and its health runs: paper under
+# CIFAR10_NONCONVEX, COCS, 4 rounds in 2 intervals
+CNN_PROBE = (4, 2)
+
+
+def resilient_spec(scenario="metropolis-1k", policy="cocs", backend="device",
+                   checkpoint_dir=None, resume=False, health="off",
+                   telemetry=False, trace=None, profiler=None,
+                   horizon=RESUME_ROUNDS, every=RESUME_EVERY):
+    """Phase 18's spec: tier 4 (``backend="device"``) or tier 3
+    (``"host"``), logreg, ``RESUME_SEEDS``."""
+    from repro_torch import api
+    from repro_torch.obs.spec import ObsSpec
+    return api.ExperimentSpec(
+        policy=api.PolicySpec(policy),
+        env=api.EnvSpec(scenario, backend=backend),
+        train=api.TrainSpec(),
+        eval=api.EvalSpec(eval_every=every, checkpoint_dir=checkpoint_dir,
+                          resume=resume, health=health),
+        obs=ObsSpec(telemetry=telemetry, trace=trace, jax_profiler=profiler),
+        horizon=horizon, seeds=RESUME_SEEDS)
+
+
+def first_difference(a, b, fields=RUN_FIELDS):
+    """The first field in which two runs differ, or None."""
+    import numpy as np
+    for f in fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if x.shape != y.shape or not np.array_equal(x, y, equal_nan=True):
+            return f
+    return None
+
+
+def kill_after(spec, ckpt, blocks, dev, data=None):
+    """The facade's construction of ``spec``, killed after ``blocks``
+    intervals by ``stop_after_blocks``."""
+    from repro_torch.api.run import build_env, build_policy
+    from repro_torch.experiment.sweep import SimulatedKill, sweep_experiments
+    env = build_env(spec.env)
+    pol = build_policy(spec.policy, env.cfg, spec.horizon)
+    try:
+        sweep_experiments({spec.policy.name: pol}, env, list(spec.seeds),
+                          spec.horizon, eval_every=spec.eval.eval_every,
+                          data=data, checkpoint_dir=ckpt,
+                          stop_after_blocks=blocks, device=dev)
+    except SimulatedKill:
+        return
+    fail(f"phase 18: stop_after_blocks={blocks} did not stop the run")
+
+
+def resume_case(dev, tmp, data, scenario, backend, policy, kernels):
+    """Two uninterrupted runs (bitwise equal), then a kill after each of
+    ``RESUME_KILLS`` intervals and a resume, each bitwise the
+    uninterrupted run, with ``kernels``' launches over both halves equal
+    to the uninterrupted run's and no walk host sync. Returns the second
+    uninterrupted run, its wall, and the kills' launch sums."""
+    import repro_torch
+    tier = 4 if backend == "device" else 3
+    what = f"phase 18 {scenario}/{policy} tier {tier}"
+    spec = resilient_spec(scenario, policy, backend)
+    runs = [counted(lambda: repro_torch.run(spec, data=data, device=dev))
+            for _ in range(2)]
+    (a, _, want, _), (b, wall, _, _) = runs
+    diff = first_difference(a, b)
+    if diff is not None:
+        fail(f"{what}: two uninterrupted runs differ in {diff}")
+    for k in kernels:
+        if want[k] != RESUME_ROUNDS:
+            fail(f"{what}: {k} launched {want[k]} times in "
+                 f"{RESUME_ROUNDS} rounds")
+    sums = {}
+    for kill in RESUME_KILLS:
+        ckpt = os.path.join(tmp, f"{scenario}-{backend}-{policy}-{kill}")
+        _, _, l1, s1 = counted(lambda: kill_after(spec, ckpt, kill, dev,
+                                                  data))
+        res, _, l2, s2 = counted(lambda: repro_torch.run(
+            resilient_spec(scenario, policy, backend, checkpoint_dir=ckpt,
+                           resume=True), data=data, device=dev))
+        diff = first_difference(b, res)
+        if diff is not None:
+            fail(f"{what}: killed after {kill} intervals and resumed, "
+                 f"{diff} differs from the uninterrupted run")
+        both = {k: l1[k] + l2[k] for k in kernels}
+        if both != {k: want[k] for k in kernels}:
+            fail(f"{what}: launches over the killed and resumed halves "
+                 f"{both}, the uninterrupted run's "
+                 f"{ {k: want[k] for k in kernels} }")
+        if any(s1.values()) or any(s2.values()):
+            fail(f"{what}: a selection walk synced with the host")
+        sums[kill] = both
+    print(f"  {what}: 2 uninterrupted runs bitwise equal; killed after "
+          f"{list(RESUME_KILLS)} intervals and resumed, each bitwise; "
+          f"launches over both halves {sums[RESUME_KILLS[0]]} (each kill); "
+          f"walk syncs 0")
+    return b, wall, sums
+
+
+def cnn_probe(dev, tmp):
+    """The CNN (P3, 32x32x3) at lr 0.005: two runs bitwise equal, then a
+    resume gated bitwise; where two runs differ, the field is printed and
+    the probe repeats under cuDNN's deterministic algorithms. Then the
+    configuration's own lr 0.1, which diverges (R11): the health guard
+    records its leaves under ``record`` and raises under ``halt``."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.paper_hfl import CIFAR10_NONCONVEX
+    from repro_torch.data.federated import FederatedDataset
+    from repro_torch.experiment.sweep import SimulatedKill, sweep_experiments
+    from repro_torch.sim import spec as simspec
+    data = FederatedDataset.synthetic(50, kind="cifar", seed=0)
+    h, e = CNN_PROBE
+    out = {}
+
+    def sweep(env, **kw):
+        return sweep_experiments(("cocs",), env, seeds=RESUME_SEEDS,
+                                 horizon=h, eval_every=e, model_kind="cnn",
+                                 data=data, device=dev, **kw)
+
+    gated = simspec.make("paper", dataclasses.replace(CIFAR10_NONCONVEX,
+                                                      lr=GATED_LR))
+    fields = ("selections", "utilities", "participants", "explored",
+              "accuracy", "loss", "train_loss")
+    for mode in ("default", "deterministic"):
+        torch.backends.cudnn.deterministic = mode == "deterministic"
+        try:
+            a, b = sweep(gated), sweep(gated)
+            diff = next((f for f in fields
+                         if not (getattr(a, f)["cocs"]
+                                 == getattr(b, f)["cocs"]).all()), None)
+            out[mode] = {"runs_equal": diff is None, "first_diff": diff}
+            if diff is not None:
+                print(f"  CNN, cuDNN {mode}: two runs differ first in "
+                      f"{diff}; resume not gated in this mode")
+                continue
+            ckpt = os.path.join(tmp, f"cnn-{mode}")
+            try:
+                sweep(gated, checkpoint_dir=ckpt, stop_after_blocks=1)
+            except SimulatedKill:
+                pass
+            r = sweep(gated, checkpoint_dir=ckpt, resume=True)
+            rdiff = next((f for f in fields
+                          if not (getattr(a, f)["cocs"]
+                                  == getattr(r, f)["cocs"]).all()), None)
+            if rdiff is not None:
+                fail(f"phase 18: the CNN (cuDNN {mode}) resumed differs in "
+                     f"{rdiff}, two uninterrupted runs do not")
+            out[mode]["resume_bitwise"] = True
+            print(f"  CNN, cuDNN {mode}: two runs bitwise equal; killed "
+                  f"after 1 of 2 intervals and resumed, bitwise")
+            break
+        finally:
+            torch.backends.cudnn.deterministic = False
+    env = simspec.make("paper", CIFAR10_NONCONVEX)
+    rec = sweep(env, health="record").health["cocs"]
+    if not rec["events"]:
+        fail(f"phase 18: the CNN at lr {CIFAR10_NONCONVEX.lr} recorded no "
+             f"health event: {rec}")
+    bad = rec["events"][0]["bad"] if rec["events"] else []
+    if not any(x.startswith("carry['edge']") for x in bad):
+        fail(f"phase 18: the health event names no edge leaf: {bad}")
+    try:
+        sweep(env, health="halt")
+    except RuntimeError as err:
+        if "non-finite" not in str(err):
+            raise
+    else:
+        fail("phase 18: health='halt' did not raise on the diverged CNN")
+    out["health_record"] = rec
+    print(f"  CNN at lr {CIFAR10_NONCONVEX.lr} (R11): 'record' logged "
+          f"{len(rec['events'])} of {rec['checked']} intervals, first "
+          f"{rec['events'][:1]}; 'halt' raised")
+    return out
+
+
+def taps_check(off, on):
+    """Taps on against off: decisions bitwise, the counts equal to the
+    host oracle taken from the run's own outputs, the totals to the
+    series' sums."""
+    import numpy as np
+    diff = first_difference(off, on)
+    if diff is not None:
+        fail(f"phase 18: taps on changed {diff}")
+    t = on.telemetry
+    s, tot = t["series"], t["totals"]
+    checks = {
+        "selected": np.array_equal(s["selected"],
+                                   (on.selections >= 0).sum(axis=2)),
+        "arrived": np.array_equal(s["arrived"], on.participants),
+        "deadline_miss": np.array_equal(s["deadline_miss"],
+                                        s["selected"] - s["arrived"]),
+        "explored": np.array_equal(tot["explored"],
+                                   on.explored.sum(axis=1)),
+        "totals": all(np.array_equal(tot[k], s[k].sum(axis=1))
+                      for k in ("selected", "arrived", "deadline_miss"))}
+    if not all(checks.values()):
+        fail(f"phase 18: taps against the host oracle {checks}")
+    print(f"  taps on: decisions bitwise the run without; counts equal "
+          f"the host oracle {sorted(checks)}; summary "
+          f"{ {k: round(v, 4) for k, v in t['summary'].items()} }")
+    return t["summary"]
+
+
+def faulty_taps_cpu_vs_cuda(dev):
+    """``device:paper`` under ``FAULT_RATES`` with ``median``, taps on:
+    the ``agg_adjusted`` and ``corrupted`` series on the card equal the
+    CPU's."""
+    import dataclasses
+    import numpy as np
+    import repro_torch
+    from repro_torch.obs.spec import ObsSpec
+    spec = dataclasses.replace(fault_spec(scenario="paper",
+                                          aggregator="median"),
+                               obs=ObsSpec(telemetry=True))
+    a = repro_torch.run(spec, device="cpu")
+    b = repro_torch.run(spec, device=dev)
+    rows = int((a.selections != b.selections).any(axis=-1).sum())
+    out = {"selection_rows_differ": rows}
+    for k in ("agg_adjusted", "corrupted"):
+        x, y = a.telemetry["series"][k], b.telemetry["series"][k]
+        if not np.array_equal(x, y):
+            fail(f"phase 18: device:paper under FAULT_RATES with median, "
+                 f"{k} on the card differs from the CPU's ({rows} "
+                 f"selection rows differ)")
+        out[k] = float(y.sum())
+    print(f"  device:paper, FAULT_RATES, median, taps on: agg_adjusted "
+          f"({out['agg_adjusted']:.0f} slots) and corrupted "
+          f"({out['corrupted']:.0f}) series equal on the card and the CPU; "
+          f"{rows} selection rows differ")
+    return out
+
+
+def tracer_check(dev, tmp, data):
+    """A traced tier-4 run with checkpoints: its spans, the report and
+    the Perfetto export through ``python -m repro_torch.obs``; a
+    ``torch.profiler`` capture into ``ObsSpec.jax_profiler`` that names
+    B1's kernel. Returns the checkpoint writes' ms and bytes, the run and
+    the profiler attempts."""
+    import repro_torch
+    trace = os.path.join(tmp, "run.jsonl")
+    ckpt = os.path.join(tmp, "traced")
+    res, wall, _, _ = counted(lambda: repro_torch.run(
+        resilient_spec(checkpoint_dir=ckpt, trace=trace), data=data,
+        device=dev))
+    recs = [json.loads(ln) for ln in open(trace)]
+    names = [r["name"] for r in recs]
+    blocks = [r for r in recs if r["name"] == "fused_block_device"]
+    saves = [r for r in recs if r["name"] == "checkpoint.save"]
+    n = RESUME_ROUNDS // RESUME_EVERY
+    missing = {"run.resolve", "run.dispatch", "train.prepare"} - set(names)
+    if missing or len(blocks) != n or len(saves) != n or not all(
+            {"dispatch_us", "execute_us"} <= set(b) for b in blocks):
+        fail(f"phase 18: the trace holds {sorted(set(names))}, {len(blocks)} "
+             f"blocks, {len(saves)} checkpoint writes; missing {missing}")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.obs"]
+    rep = subprocess.run(cmd + ["report", trace], capture_output=True,
+                         text=True, env=env, timeout=120)
+    exp = subprocess.run(cmd + ["export", trace, "-o",
+                                os.path.join(tmp, "run.trace.json")],
+                         capture_output=True, text=True, env=env,
+                         timeout=120)
+    if rep.returncode or "## Fused blocks" not in rep.stdout \
+            or exp.returncode:
+        fail(f"phase 18: report exit {rep.returncode}, export exit "
+             f"{exp.returncode}: {rep.stderr} {exp.stderr}")
+    sizes = [os.path.getsize(os.path.join(ckpt, "cocs", f))
+             for f in sorted(os.listdir(os.path.join(ckpt, "cocs")))]
+    disp = sum(b["dispatch_us"] for b in blocks) / 1e3
+    execute = sum(b["execute_us"] for b in blocks) / 1e3
+    print(f"  traced run: {len(recs)} records; {n} fused_block_device spans "
+          f"(dispatch {disp:.1f} ms, execute {execute:.1f} ms in all), {n} "
+          f"checkpoint.save spans; report ({len(rep.stdout)} bytes) and "
+          f"Perfetto export through python -m repro_torch.obs")
+    found, attempts = False, 0
+    while not found and attempts < 3:
+        attempts += 1
+        prof = os.path.join(tmp, f"prof{attempts}")
+        repro_torch.run(resilient_spec(profiler=prof, horizon=2, every=2),
+                        data=data, device=dev)
+        for f in os.listdir(prof):
+            with open(os.path.join(prof, f)) as fh:
+                found = found or "context_pairwise_kernel" in fh.read()
+    if not found:
+        fail("phase 18: the torch.profiler traces of 3 runs name no "
+             "context_pairwise_kernel")
+    print(f"  ObsSpec.jax_profiler: a torch.profiler trace naming "
+          f"context_pairwise_kernel (attempt {attempts})")
+    return dict(save_ms=[r["dur_us"] / 1e3 for r in saves],
+                save_bytes=sizes, rounds_per_s=RESUME_ROUNDS / wall,
+                profiler_attempts=attempts)
+
+
+def resilience_phase(dev):
+    """Phase 18: checkpoints and resume, the health guard, the taps and
+    the tracer through ``repro_torch.run`` on the card."""
+    import tempfile
+    import repro_torch
+    from repro_torch.data.federated import FederatedDataset
+    t_phase = time.perf_counter()
+    data = FederatedDataset.synthetic(1000, kind="mnist",
+                                      samples_per_client=50, seed=0)
+    data.stacked(dev)
+    out = {"resume": {}, "rounds_per_s": {}}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        plain = {}
+        for pol in POLICIES:
+            kernels = ("context_pairwise", "masked_aggregate") \
+                + SELECT_KERNELS[pol]
+            plain[pol], wall, sums = resume_case(
+                dev, tmp, data, "metropolis-1k", "device", pol, kernels)
+            out["resume"][f"metropolis-1k/{pol}/tier4"] = sums
+            out["rounds_per_s"][f"{pol}, off"] = RESUME_ROUNDS / wall
+        _, _, sums = resume_case(dev, tmp, None, "paper", "host", "cocs",
+                                 ("budgeted_topk", "masked_aggregate"))
+        out["resume"]["paper/cocs/tier3"] = sums
+        out["cnn"] = cnn_probe(dev, tmp)
+
+        costs = {}
+        for what, kw in (("checkpoints", dict(checkpoint_dir=os.path.join(
+                              tmp, "costs"))),
+                         ("health", dict(health="record")),
+                         ("taps", dict(telemetry=True))):
+            res, wall, _, _ = counted(lambda: repro_torch.run(
+                resilient_spec(**kw), data=data, device=dev))
+            costs[what] = (res, wall)
+            out["rounds_per_s"][f"cocs, {what}"] = RESUME_ROUNDS / wall
+        clean = costs["health"][0].health
+        if clean != {"checked": RESUME_ROUNDS // RESUME_EVERY, "events": []}:
+            fail(f"phase 18: a clean logreg run's health report {clean}")
+        diff = first_difference(plain["cocs"], costs["checkpoints"][0])
+        if diff is not None:
+            fail(f"phase 18: checkpoints changed {diff}")
+        out["taps"] = taps_check(plain["cocs"], costs["taps"][0])
+        out["faulty_taps"] = faulty_taps_cpu_vs_cuda(dev)
+        out["tracer"] = tracer_check(dev, tmp, data)
+        out["rounds_per_s"]["cocs, checkpoints + tracer"] = \
+            out["tracer"]["rounds_per_s"]
+    r = out["rounds_per_s"]
+    t = out["tracer"]
+    save_ms = sorted(t["save_ms"])[len(t["save_ms"]) // 2]
+    print(f"  costs (not gated), COCS rounds/s: off {r['cocs, off']:.3f}, "
+          f"checkpoints {r['cocs, checkpoints']:.3f}, health "
+          f"{r['cocs, health']:.3f}, taps {r['cocs, taps']:.3f}, "
+          f"checkpoints + tracer {r['cocs, checkpoints + tracer']:.3f}; a "
+          f"checkpoint write {save_ms:.2f} ms (median of "
+          f"{len(t['save_ms'])}), {t['save_bytes'][0]} to "
+          f"{t['save_bytes'][-1]} bytes")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 18 in {out['phase_s']:.1f} s")
+    return out
+
+
 # -- phase 11: the serve slice on CPU against CUDA ---------------------------
 
 def lm_cpu_vs_cuda(dev):
@@ -3177,6 +3564,10 @@ def main() -> int:
           "metropolis-1k)")
     faults = faults_phase(dev)
 
+    print("phase 18: resilience and observability (repro_torch.run, tiers 3 "
+          "and 4: checkpoints and resume, health, taps, tracer)")
+    resilience = resilience_phase(dev)
+
     # each kernel's launches on its own main path: B1-B3 and Random's
     # scan the HFL runs of phase 4 (three policies), P3's walk the gated
     # non-convex run, B4 the qwen2 serve (the shape its row is timed at;
@@ -3209,7 +3600,8 @@ def main() -> int:
                       "rounds_per_s": rps, "hfl_cpu_vs_cuda":
                       hfl_cpu_vs_cuda, "nonconvex": nonconvex,
                       "bandit": bandit, "panels": panels,
-                      "faults": faults, "serve": serve_rows}))
+                      "faults": faults, "resilience": resilience,
+                      "serve": serve_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

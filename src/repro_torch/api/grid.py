@@ -29,7 +29,10 @@ How the batchable axes thread through without a change of shape:
 
 A batched cell equals the sequential ``run`` of that cell: selections,
 utilities, participants and explored bitwise, accuracy to float
-tolerance.
+tolerance. A batched group carries no telemetry taps, checkpoints or
+health guard (its results have ``telemetry`` and ``health`` None), as
+the reference's; a cell that runs in turn goes through ``run`` with its
+own ``EvalSpec`` and ``ObsSpec``.
 """
 from __future__ import annotations
 

@@ -31,14 +31,19 @@ Faults (``EnvSpec.faults``) act in either env's rounds (dropout,
 stragglers, ES outages) and in the training tiers' updates (corruption,
 from the env seeds); ``TrainSpec.aggregator`` picks the Eq. 3 rule
 (``fed.robust``) and ``TrainSpec.transposed_gemm`` the reference's
-``logreg-t`` layout. What the port does not have yet raises
-``NotImplementedError`` naming its ROADMAP item, before any work, and
-never runs a substitute:
+``logreg-t`` layout.
 
-  * an enabled ``ObsSpec``, checkpoints and resume, and the health
-    guard: queue A item 3;
-  * a sharded layout (``ShardSpec`` or ``shard_seeds``) and the
-    ``metropolis-100k``/``-1m`` cohorts: queue A item 4.
+Tiers 3 and 4 take the reference's resilience and observability:
+``EvalSpec.checkpoint_dir``/``resume`` (one atomic checkpoint an eval
+interval, a bitwise resume), ``EvalSpec.health`` ("record" or "halt" on
+a non-finite carry) and ``ObsSpec`` (``telemetry`` taps into
+``RunResult.telemetry``, a ``trace`` JSONL span log with its
+``perfetto`` export, a ``torch.profiler`` trace into ``jax_profiler``).
+Tiers 1 and 2 run the tracer too and report ``telemetry=None``. What
+the port does not have yet raises ``NotImplementedError`` naming its
+ROADMAP item, before any work, and never runs a substitute: a sharded
+layout (``ShardSpec`` or ``shard_seeds``) and the
+``metropolis-100k``/``-1m`` cohorts, queue A item 4.
 
 ``device=None`` runs on CUDA and raises without a CUDA device; pass
 ``device="cpu"`` for the plain PyTorch path. On CUDA every kernel
@@ -58,6 +63,7 @@ import numpy as np
 from repro_torch.api.spec import (EnvSpec, ExperimentGrid, ExperimentSpec,
                                   PolicySpec)
 from repro_torch.envs import cached_rollout
+from repro_torch.obs import trace as obs_trace
 
 # the reference's host scenarios (``repro.envs.SCENARIOS``) and its
 # device presets (``repro.sim.spec.PRESETS``), by name
@@ -75,8 +81,11 @@ class RunResult:
     Leading axes: S seeds (in ``spec.seeds`` order), T rounds, E evals.
     ``accuracy``/``loss``/``eval_rounds`` are None for bandit-only runs.
     ``batched_axes`` names the grid axes the run was batched over (empty
-    outside ``api.grid``); ``health`` and ``telemetry`` are always None
-    here (the port has neither yet).
+    outside ``api.grid``). ``health`` is the guard's report on tiers 3
+    and 4 when ``EvalSpec.health`` is on (``{"checked": int, "events":
+    [...]}``); ``telemetry`` the taps' ``{"series", "totals",
+    "summary"}`` on tiers 3 and 4 with ``ObsSpec.telemetry``; both None
+    otherwise.
     """
     spec: ExperimentSpec                 # resolved spec (provenance)
     tier: int                            # 1..4, see the module docstring
@@ -192,13 +201,6 @@ def select_tier(spec: ExperimentSpec, policy, env) -> int:
 def _refuse(spec: ExperimentSpec) -> None:
     """Every part of a spec the port cannot run raises here, before any
     work."""
-    if spec.obs.enabled:
-        raise _not_ported("observability (ObsSpec)", 3)
-    ev = spec.eval
-    if ev.checkpoint_dir is not None or ev.resume:
-        raise _not_ported("checkpoint and resume (EvalSpec)", 3)
-    if ev.health != "off":
-        raise _not_ported("the carry health guard (EvalSpec.health)", 3)
     shard = spec.shard
     if (shard is not None and (shard.clients > 1 or shard.seeds > 1)) \
             or spec.shard_seeds:
@@ -224,49 +226,83 @@ def run(spec, *, data=None, device=None):
 
     ``data`` optionally supplies the ``FederatedDataset`` of a training
     tier (default: synthetic data keyed on the model kind). ``device``
-    is the torch device: ``None`` means CUDA and raises without it."""
+    is the torch device: ``None`` means CUDA and raises without it.
+    The run is traced as its ``spec.obs`` asks (``obs.trace``)."""
     if isinstance(spec, ExperimentGrid):
         from repro_torch.api.grid import run_grid
         return run_grid(spec, data=data, device=device)
     if not isinstance(spec, ExperimentSpec):
         raise TypeError("repro_torch.run expects an ExperimentSpec or "
                         f"ExperimentGrid, got {type(spec).__name__}")
-    from repro_torch.experiment.sweep import sweep_experiments
     from repro_torch.kernels.common import resolve_device
-    from repro_torch.sim.draws import SCHEDULE_ID
-    from repro_torch.sim.spec import DeviceEnv
 
     _refuse(spec)
     dev = resolve_device(device)
     _check_device(spec, dev)
-    env = build_env(spec.env)
-    policy = build_policy(spec.policy, env.cfg, spec.horizon)
-    tier = select_tier(spec, policy, env)
-    backend = "device" if isinstance(env, DeviceEnv) else "host"
+    with obs_trace.run_tracing(spec.obs):
+        return _run_spec(spec, data, dev)
+
+
+def _run_spec(spec: ExperimentSpec, data, dev) -> RunResult:
+    from repro_torch.experiment.sweep import sweep_experiments
+    from repro_torch.sim.draws import SCHEDULE_ID
+    from repro_torch.sim.spec import DeviceEnv
+
+    with obs_trace.span("run.resolve", policy=spec.policy.name,
+                        scenario=spec.env.scenario) as at:
+        env = build_env(spec.env)
+        policy = build_policy(spec.policy, env.cfg, spec.horizon)
+        tier = select_tier(spec, policy, env)
+        backend = "device" if isinstance(env, DeviceEnv) else "host"
+        at["tier"], at["backend"] = tier, backend
     seeds = [int(s) for s in spec.seeds]
     pol_seeds = [s + spec.policy.seed_offset for s in seeds]
     common = dict(spec=spec, tier=tier, env_backend=backend,
                   draw_schedule=SCHEDULE_ID)
     if tier == 1:
-        return RunResult(**common, **_run_bandit(
-            policy, env, seeds, pol_seeds, spec.horizon, backend, dev))
+        # the bandit engines carry no training taps: telemetry is None
+        with obs_trace.span("run.dispatch", tier=tier):
+            out = _run_bandit(policy, env, seeds, pol_seeds, spec.horizon,
+                              backend, dev)
+        return RunResult(**common, **out)
     name = spec.policy.name
-    res = sweep_experiments(
-        {name: policy}, env, seeds, spec.horizon,
-        model_kind=spec.train.model_kind,
-        batch_size=spec.train.batch_size,
-        batches_per_epoch=spec.train.batches_per_epoch,
-        eval_every=spec.eval.eval_every, data=data,
-        slots_per_es=spec.train.slots_per_es,
-        policy_seed_offset=spec.policy.seed_offset,
-        aggregator=spec.train.aggregator, trim_frac=spec.train.trim_frac,
-        device=dev)
+    with obs_trace.span("run.dispatch", tier=tier, policy=name):
+        res = sweep_experiments(
+            {name: policy}, env, seeds, spec.horizon,
+            model_kind=spec.train.model_kind,
+            batch_size=spec.train.batch_size,
+            batches_per_epoch=spec.train.batches_per_epoch,
+            eval_every=spec.eval.eval_every, data=data,
+            slots_per_es=spec.train.slots_per_es,
+            policy_seed_offset=spec.policy.seed_offset,
+            aggregator=spec.train.aggregator,
+            trim_frac=spec.train.trim_frac,
+            checkpoint_dir=spec.eval.checkpoint_dir,
+            resume=spec.eval.resume, health=spec.eval.health,
+            telemetry=spec.obs.telemetry, device=dev)
+    telemetry = res.telemetry.get(name)
+    if telemetry is not None and obs_trace.active() is not None:
+        _emit_telemetry_event(name, telemetry)
     return RunResult(**common, selections=res.selections[name],
                      utilities=res.utilities[name],
                      participants=res.participants[name],
                      explored=res.explored[name],
                      eval_rounds=np.asarray(res.eval_rounds),
-                     accuracy=res.accuracy[name], loss=res.loss[name])
+                     accuracy=res.accuracy[name], loss=res.loss[name],
+                     health=res.health.get(name), telemetry=telemetry)
+
+
+def _emit_telemetry_event(name: str, telemetry: dict) -> None:
+    """The run's telemetry profile as a trace event, which the report
+    (``python -m repro_torch.obs report``) renders."""
+    def series(key):
+        return [round(float(v), 4)
+                for v in np.mean(telemetry["series"][key], axis=0)]
+    obs_trace.event("telemetry", policy=name,
+                    summary=telemetry["summary"],
+                    participation=series("arrived"),
+                    explored=series("underexplored"),
+                    ucb_width=series("ucb_width"))
 
 
 _FIELDS = ("selections", "utilities", "participants", "explored")

@@ -212,10 +212,10 @@ class ShardSpec:
 class EvalSpec:
     """Test-set evaluation cadence (one eval per ``eval_every``
     training rounds, plus one after the final round), and the
-    reference's resilient-execution knobs: per-interval checkpoints
+    resilient-execution knobs of tiers 3 and 4: per-interval checkpoints
     (``checkpoint_dir``, ``resume``) and the carry's health guard
-    (``health``: ``"off"``, ``"record"``, ``"halt"``). The port has
-    neither yet (ROADMAP queue A item 3).
+    (``health``: ``"off"``, ``"record"``, ``"halt"``;
+    ``experiment.sweep``).
     """
     eval_every: int = 5
     checkpoint_dir: Optional[str] = None
@@ -234,9 +234,9 @@ class EvalSpec:
 class ExperimentSpec:
     """One complete, serializable experiment description.
 
-    ``obs`` (``obs.spec.ObsSpec``) declares how the run is observed;
-    the default ``ObsSpec()`` is all off, the only setting the port
-    runs.
+    ``obs`` (``obs.spec.ObsSpec``) declares how the run is observed
+    (telemetry taps, span trace, profiler capture); the default
+    ``ObsSpec()`` is all off.
     """
     policy: PolicySpec = field(default_factory=PolicySpec)
     env: EnvSpec = field(default_factory=EnvSpec)

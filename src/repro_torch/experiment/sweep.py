@@ -28,11 +28,23 @@ Faults come from the env (``HFLEnv.faults`` / ``SimSpec.faults``): its
 rounds carry the dropout, straggler and outage events, and every tier
 corrupts updates from the env seeds. ``aggregator``/``trim_frac`` pick
 the Eq. 3 rule (``fed.robust``).
+
+Tiers 3 and 4 also run resilient (the reference's ``sweep.py:309-469``):
+one atomic checkpoint an eval interval, a resume that continues from the
+newest one and reproduces the uninterrupted run bitwise, and the health
+guard over each interval's carry and outputs. ``telemetry=True`` threads
+the ``obs.telemetry`` taps through their blocks. Each block runs under a
+``fused_block`` (tier 3) or ``fused_block_device`` (tier 4) span of the
+``obs.trace`` tracer.
 """
 from __future__ import annotations
 
+import json
+import os
+import warnings
 from dataclasses import dataclass, field
-from typing import Dict, List, NamedTuple, Optional, Sequence, Union
+from types import SimpleNamespace
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -48,6 +60,7 @@ from repro_torch.fed.batched import BatchedRoundSpec, train_round
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.logistic import (MODEL_KINDS, init_cnn,
                                          init_logreg, init_logreg_t)
+from repro_torch.obs import trace as obs_trace
 from repro_torch.policies.base import (FunctionalPolicy, PolicyAdapter,
                                        PolicySpec, Round, round_from_arrays,
                                        round_from_data, rounds_to_scan_axes)
@@ -70,6 +83,12 @@ class SweepResult:
     # the port's own addition: local SGD's loss at its first and last
     # step, the mean over each round's filled slots (S, T, 2)
     train_loss: Dict[str, np.ndarray] = field(default_factory=dict)
+    # per policy, with the health guard on: {"checked": int, "events":
+    # [{"interval": int, "round_end": int, "bad": [leaf names]}]}
+    health: Dict[str, dict] = field(default_factory=dict)
+    # per policy, with telemetry on: {"series": {metric: (S, T)},
+    # "totals": {metric: (S,)}, "summary": {...}}; None for tier 2
+    telemetry: Dict[str, Optional[dict]] = field(default_factory=dict)
 
 
 def _block_bounds(horizon: int, eval_every: int) -> List[int]:
@@ -173,6 +192,10 @@ def sweep_experiments(policies: Union[Sequence[str],
                       slots_per_es: Optional[int] = None,
                       policy_seed_offset: int = 0,
                       aggregator: str = "mean", trim_frac: float = 0.1,
+                      checkpoint_dir: Optional[str] = None,
+                      resume: bool = False, health: str = "off",
+                      stop_after_blocks: Optional[int] = None,
+                      telemetry: bool = False,
                       device=None) -> SweepResult:
     """Run every policy for every seed over ``horizon`` training rounds.
 
@@ -189,12 +212,28 @@ def sweep_experiments(policies: Union[Sequence[str],
     A host env's rounds come from its rollout cache
     (``envs.cached_rollout``), so the policies of a panel share them.
 
+    Tiers 3 and 4 (tensor policies): with ``checkpoint_dir`` each eval
+    interval ends with an atomic checkpoint of the carry and the
+    outputs so far, in a subdirectory a policy; ``resume=True``
+    continues from the newest one (a checkpoint of another run, another
+    telemetry mode or another device type is refused) and reproduces
+    the uninterrupted run bitwise. ``health`` ("off", "record", "halt")
+    scans each interval's carry and outputs for non-finite values into
+    ``SweepResult.health``, or raises ``RuntimeError``.
+    ``stop_after_blocks`` raises ``SimulatedKill`` after that many
+    intervals (a kill the tests can place). ``telemetry=True`` fills
+    ``SweepResult.telemetry``. Tier-2 policies run without these hooks
+    (warned) and report no telemetry.
+
     ``device=None`` runs on CUDA and raises without a CUDA device; pass
     ``device="cpu"`` for the plain PyTorch path. A host env's rounds are
     realized on the CPU either way (its design) and then moved to
     ``device``. ``slots_per_es`` pins the per-ES slot capacity (a round
     that assigns more raises); ``None`` sizes each round to its largest
     cohort."""
+    if health not in ("off", "record", "halt"):
+        raise ValueError(
+            f"health must be 'off', 'record' or 'halt', got {health!r}")
     dev = resolve_device(device)
     env = simspec.resolve(env)
     device_env = isinstance(env, simspec.DeviceEnv)
@@ -204,37 +243,64 @@ def sweep_experiments(policies: Union[Sequence[str],
             else _make_policies(policies, cfg, horizon))
     pol_seeds = [x + int(policy_seed_offset) for x in seeds]
     faults = env.spec.faults if device_env else env.faults
-    setup = prepare_training(cfg, model_kind, batch_size,
-                             batches_per_epoch, data, seeds, dev,
-                             aggregator, trim_frac, faults)
+    resilient = (checkpoint_dir is not None or health != "off"
+                 or stop_after_blocks is not None)
+    with obs_trace.span("train.prepare", seeds=len(seeds),
+                        model=model_kind):
+        setup = prepare_training(cfg, model_kind, batch_size,
+                                 batches_per_epoch, data, seeds, dev,
+                                 aggregator, trim_frac, faults)
     ends = _block_bounds(horizon, eval_every)
 
     scan_rounds = None
     if not device_env and any(p.tensor_capable for p in pols.values()):
-        scan_rounds = round_from_arrays(
-            rounds_to_scan_axes(env.rollout_multi(seeds, horizon)), dev)
+        with obs_trace.span("env.realize", seeds=len(seeds),
+                            horizon=horizon):
+            scan_rounds = round_from_arrays(
+                rounds_to_scan_axes(env.rollout_multi(seeds, horizon)), dev)
     seed_t = setup.env_seeds
     result = SweepResult(policies=list(pols), seeds=seeds,
                          eval_rounds=np.asarray(ends), accuracy={}, loss={},
                          utilities={}, participants={}, selections={},
                          explored={})
     for name, pol in pols.items():
+        ctx = None
         if not pol.tensor_capable:
+            if resilient:
+                warnings.warn(
+                    "checkpoint/resume and health guards apply to the "
+                    f"fused training tiers only; host-loop policy {name!r} "
+                    "runs without them", stacklevel=2)
             out = run_host(pol, setup,
                            [host_rounds(env, x, horizon, dev) for x in seeds],
                            pol_seeds, ends, slots_per_es)
-        elif device_env:
-            out = run_fused_device(pol, setup, env.spec, seed_t,
-                                   init_statics(env.spec, seed_t),
-                                   pol.init(len(seeds), dev, pol_seeds),
-                                   ends, slots_per_es)
         else:
-            out = run_fused(pol, setup, scan_rounds,
-                            pol.init(len(seeds), dev, pol_seeds), ends,
-                            slots_per_es)
-        for f in ("accuracy", "loss", "utilities", "participants",
-                  "selections", "explored", "train_loss"):
+            if resilient:
+                pdir = None
+                if checkpoint_dir is not None:
+                    safe = "".join(c if c.isalnum() or c in "-_." else "_"
+                                   for c in name)
+                    pdir = os.path.join(checkpoint_dir, safe)
+                ctx = _ResilientCtx(
+                    ckpt_dir=pdir, resume=bool(resume), health=health,
+                    stop_after=stop_after_blocks,
+                    fingerprint=_run_fingerprint(
+                        name, pol, setup, env, seeds, pol_seeds, ends,
+                        slots_per_es, dev, telemetry))
+            pstate = pol.init(len(seeds), dev, pol_seeds)
+            if device_env:
+                out = run_fused_device(pol, setup, env.spec, seed_t,
+                                       init_statics(env.spec, seed_t),
+                                       pstate, ends, slots_per_es, ctx=ctx,
+                                       telemetry=telemetry)
+            else:
+                out = run_fused(pol, setup, scan_rounds, pstate, ends,
+                                slots_per_es, ctx=ctx, telemetry=telemetry)
+        for f in _BLOCK_FIELDS:
             getattr(result, f)[name] = out[f]
+        result.telemetry[name] = out.get("telemetry")
+        if ctx is not None and health != "off":
+            result.health[name] = ctx.report
     return result
 
 
@@ -243,57 +309,296 @@ _BLOCK_FIELDS = {"accuracy": False, "loss": False, "utilities": True,
                  "explored": True, "train_loss": True}
 
 
-def _collect_blocks(outs) -> Dict[str, np.ndarray]:
-    """Per-block outputs -> host numpy with leading (S, T) or (S, E)."""
-    return {f: (torch.cat if cat else torch.stack)(
+def _collect_blocks(outs, telemetry: bool = False) -> Dict[str, Any]:
+    """Per-block outputs -> host numpy with leading (S, T) or (S, E), and
+    the run's telemetry (None without taps)."""
+    res = {f: (torch.cat if cat else torch.stack)(
         [getattr(o, f) for o in outs], dim=1).cpu().numpy()
         for f, cat in _BLOCK_FIELDS.items()}
+    if telemetry:
+        from repro_torch.obs.telemetry import collect
+        res["telemetry"] = collect([o.telemetry for o in outs],
+                                   [o.tele_acc for o in outs])
+    return res
+
+
+# -- resilient execution: checkpoints, resume, the health guard ---------------
+# One block an eval interval, and the interval's end is the checkpoint's
+# grain: the exact carry (policy state, edge params, a device env's
+# positions), every finished interval's outputs and the interval count,
+# written atomically. A resumed run continues from the carry the
+# uninterrupted run had there and reproduces its decisions bitwise. A
+# fingerprint (draw schedule, policy, spec, world, seeds, interval
+# layout, telemetry mode, device type) refuses a checkpoint of another
+# run. CPU and CUDA runs of the port are not bitwise equal, so a
+# checkpoint resumes only on the device type that wrote it.
+
+
+class SimulatedKill(RuntimeError):
+    """Raised after ``stop_after_blocks`` intervals: a deterministic
+    stand-in for a process killed mid-run."""
+
+
+@dataclass
+class _ResilientCtx:
+    """One policy's state in the resilient runner."""
+    ckpt_dir: Optional[str]          # None: health and kill hooks only
+    resume: bool
+    health: str                      # "off" | "record" | "halt"
+    stop_after: Optional[int]
+    fingerprint: str
+    report: dict = field(default_factory=lambda: {"checked": 0,
+                                                  "events": []})
+    outs: list = field(default_factory=list)   # records, CPU tensors
+
+
+def _run_fingerprint(name: str, pol, setup: TrainingSetup, env, seeds,
+                     pol_seeds, ends, slots, dev, telemetry: bool) -> str:
+    from repro_torch.sim.draws import SCHEDULE_ID
+    fp = {"schedule": SCHEDULE_ID, "policy": name, "config": repr(pol),
+          "spec": repr(setup.spec), "batch": setup.batch,
+          "world": repr(env), "seeds": list(seeds),
+          "policy_seeds": list(pol_seeds), "ends": list(ends),
+          "slots": slots, "device": dev.type}
+    if telemetry:
+        fp["telemetry"] = True
+    return json.dumps(fp, sort_keys=True)
+
+
+def _leaves(tree, path: str = ""):
+    """``(path, leaf)`` pairs in the reference's pytree order: dict keys
+    sorted, NamedTuple fields and sequence items in order, ``None`` no
+    leaf; paths as ``jax.tree_util.keystr`` writes them
+    (``['edge']['w']``, ``.p_hat``, ``[0]``)."""
+    if tree is None:
+        return
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{path}[{k!r}]")
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for k, v in zip(tree._fields, tree):
+            yield from _leaves(v, f"{path}.{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}[{i}]")
+    else:
+        yield path, tree
+
+
+def _rebuild(template, leaves):
+    """``template``'s structure with its leaves taken in ``_leaves``
+    order from the iterator ``leaves``."""
+    if template is None:
+        return None
+    if isinstance(template, dict):
+        out = {k: _rebuild(template[k], leaves) for k in sorted(template)}
+        return {k: out[k] for k in template}
+    if isinstance(template, tuple) and hasattr(template, "_fields"):
+        return type(template)(*(_rebuild(v, leaves) for v in template))
+    if isinstance(template, (list, tuple)):
+        return type(template)(_rebuild(v, leaves) for v in template)
+    return next(leaves)
+
+
+def _like(template, restored):
+    """A restored carry in the template's structure (NamedTuples come
+    back as lists), each leaf on its template leaf's device; a leaf of
+    another count, shape or dtype raises."""
+    want = [v for _, v in _leaves(template)]
+    got = [v for _, v in _leaves(restored)]
+    if len(got) != len(want):
+        raise ValueError(
+            f"checkpoint carry has {len(got)} leaves, expected "
+            f"{len(want)}: written by a different model or policy?")
+    moved = []
+    for w, g in zip(want, got):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise ValueError(
+                f"checkpoint carry leaf {tuple(g.shape)} {g.dtype}, "
+                f"expected {tuple(w.shape)} {w.dtype}")
+        moved.append(g.to(w.device))
+    return _rebuild(template, iter(moved))
+
+
+def _out_record(out) -> dict:
+    """A block's outputs as plain dicts of CPU tensors (the checkpoint's
+    ``outs``; telemetry as dicts of its fields)."""
+    rec = {f: getattr(out, f).cpu() for f in _BLOCK_FIELDS}
+    if out.telemetry is not None:
+        rec["telemetry"] = {k: v.cpu()
+                            for k, v in out.telemetry._asdict().items()}
+        rec["tele_acc"] = {k: v.cpu()
+                           for k, v in out.tele_acc._asdict().items()}
+    return rec
+
+
+def _try_resume(ctx: _ResilientCtx, template: dict, dev):
+    """The newest checkpoint as ``(blocks_done, carry, outs)``, or None
+    when there is none; a checkpoint of another run raises."""
+    from repro_torch.checkpoint import latest_checkpoint, restore_pytree
+    if ctx.ckpt_dir is None:
+        return None
+    path = latest_checkpoint(ctx.ckpt_dir)
+    if path is None:
+        return None
+    payload = restore_pytree(path)
+    if payload["fingerprint"] != ctx.fingerprint:
+        raise ValueError(
+            f"checkpoint {path!r} was written by a different run "
+            "configuration (draw schedule / policy / spec / seeds / "
+            "interval layout / telemetry mode / device type mismatch); "
+            "refusing to resume — point checkpoint_dir at a fresh "
+            "directory or disable resume")
+    carry = {k: _like(template[k], payload["carry"][k]) for k in template}
+    ctx.outs = list(payload["outs"])
+    ctx.report = json.loads(payload["health"])
+    outs = [SimpleNamespace(**{f: rec[f].to(dev) for f in _BLOCK_FIELDS},
+                            telemetry=rec.get("telemetry"),
+                            tele_acc=rec.get("tele_acc"))
+            for rec in ctx.outs]
+    return int(payload["blocks_done"]), carry, outs
+
+
+def _bad_leaves(tag: str, tree) -> list:
+    return [tag + path for path, leaf in _leaves(tree)
+            if leaf.is_floating_point()
+            and not bool(torch.isfinite(leaf).all())]
+
+
+def _after_block(ctx: _ResilientCtx, bi: int, hi: int, carry: dict, out):
+    """The end of an interval: the health scan, the atomic checkpoint,
+    the simulated kill. Reading the carry costs a device sync and a copy
+    an interval, the price of resilience; with ``ctx=None`` the blocks
+    stay in flight and never come here."""
+    from repro_torch.checkpoint import save_pytree
+    rec = _out_record(out)
+    ctx.outs.append(rec)
+    if ctx.health != "off":
+        # the port's train_loss is checkpointed, not scanned: a record
+        # names the leaves the reference's names
+        scanned = {k: v for k, v in rec.items() if k != "train_loss"}
+        bad = _bad_leaves("carry", carry) + _bad_leaves("out", scanned)
+        ctx.report["checked"] += 1
+        if bad:
+            ctx.report["events"].append(
+                {"interval": bi, "round_end": hi, "bad": bad})
+            obs_trace.event("health", interval=bi, round_end=hi, bad=bad)
+            if ctx.health == "halt":
+                raise RuntimeError(
+                    f"non-finite training state after interval {bi} "
+                    f"(round {hi}): {bad} — run with health='record' to "
+                    "log and continue instead")
+    if ctx.ckpt_dir is not None:
+        with obs_trace.span("checkpoint.save", interval=bi, step=bi + 1):
+            save_pytree(ctx.ckpt_dir, {
+                "fingerprint": ctx.fingerprint, "blocks_done": bi + 1,
+                "carry": carry, "outs": list(ctx.outs),
+                "health": json.dumps(ctx.report)}, step=bi + 1)
+    if ctx.stop_after is not None and bi + 1 >= ctx.stop_after:
+        raise SimulatedKill(
+            f"stop_after_blocks={ctx.stop_after}: run killed after "
+            f"interval {bi + 1}"
+            + ("" if ctx.ckpt_dir is None else
+               f" (checkpoint {bi + 1} written to {ctx.ckpt_dir!r})"))
+
+
+def _traced_block(name: str, run_block, bi: int, lo: int, hi: int,
+                  slots: Optional[int], policy: str, dev):
+    """One block under a span (the reference's ``_traced_block``). Under
+    an active tracer the span also splits ``dispatch_us`` (the host
+    loop) from ``execute_us`` (waiting on the device) with one
+    synchronize; without one it is the bare call, outputs in flight."""
+    with obs_trace.span(name, interval=bi, round_end=hi, rounds=hi - lo,
+                        slots=slots, policy=policy) as at:
+        if obs_trace.active() is None:
+            return run_block()
+        t0 = obs_trace.now_us()
+        out = run_block()
+        at["dispatch_us"] = obs_trace.now_us() - t0
+        t1 = obs_trace.now_us()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        at["execute_us"] = obs_trace.now_us() - t1
+        return out
 
 
 def run_fused_device(pol: FunctionalPolicy, setup: TrainingSetup,
                      sim_spec, seed_t: torch.Tensor, statics, pstate,
                      ends: List[int], slots: Optional[int] = None,
                      budgets: Optional[torch.Tensor] = None,
-                     deadlines: Optional[torch.Tensor] = None
-                     ) -> Dict[str, np.ndarray]:
+                     deadlines: Optional[torch.Tensor] = None,
+                     ctx: Optional[_ResilientCtx] = None,
+                     telemetry: bool = False) -> Dict[str, Any]:
     """Tier 4: every batch element at once, one ``block_device`` an eval
-    interval (``budgets``/``deadlines``: a grid's per-element cells)."""
+    interval (``budgets``/``deadlines``: a grid's per-element cells;
+    ``ctx``: the resilient runner's hooks)."""
+    dev = seed_t.device
     edge = {k: v.clone() for k, v in setup.edge_seed.items()}
     pos = statics.pos0.clone()
-    outs, lo = [], 0
-    for hi in ends:
-        out = block_device(pol, setup.spec, sim_spec, pstate, edge, pos,
-                           seed_t, statics, lo, hi, setup.stacked,
-                           setup.base_keys, setup.batch, setup.test_x,
-                           setup.test_y, slots=slots, budgets=budgets,
-                           deadlines=deadlines)
+    outs, start = [], 0
+    if ctx is not None and ctx.resume:
+        res = _try_resume(ctx, {"pstate": pstate, "edge": edge,
+                                "pos": pos}, dev)
+        if res is not None:
+            start, carry, outs = res
+            pstate, edge, pos = carry["pstate"], carry["edge"], carry["pos"]
+    lo = ends[start - 1] if start > 0 else 0
+    for bi in range(start, len(ends)):
+        hi = ends[bi]
+        out = _traced_block(
+            "fused_block_device",
+            lambda: block_device(pol, setup.spec, sim_spec, pstate, edge,
+                                 pos, seed_t, statics, lo, hi,
+                                 setup.stacked, setup.base_keys,
+                                 setup.batch, setup.test_x, setup.test_y,
+                                 slots=slots, budgets=budgets,
+                                 deadlines=deadlines, telemetry=telemetry),
+            bi, lo, hi, slots, pol.name, dev)
         pstate, edge, pos = out.policy_state, out.edge_params, out.env_pos
         outs.append(out)
+        if ctx is not None:
+            _after_block(ctx, bi, hi, {"pstate": pstate, "edge": edge,
+                                       "pos": pos}, out)
         lo = hi
-    return _collect_blocks(outs)
+    return _collect_blocks(outs, telemetry)
 
 
 def run_fused(pol: FunctionalPolicy, setup: TrainingSetup,
               scan_rounds: Round, pstate, ends: List[int],
               slots: Optional[int] = None,
-              budgets: Optional[torch.Tensor] = None
-              ) -> Dict[str, np.ndarray]:
+              budgets: Optional[torch.Tensor] = None,
+              ctx: Optional[_ResilientCtx] = None,
+              telemetry: bool = False) -> Dict[str, Any]:
     """Tier 3: the host env's (T, S, ...) rounds, one ``block_host`` an
     eval interval (corruption from ``setup.faults`` and its env
     seeds)."""
+    dev = setup.base_keys.device
     edge = {k: v.clone() for k, v in setup.edge_seed.items()}
-    outs, lo = [], 0
-    for hi in ends:
-        out = block_host(pol, setup.spec, pstate, edge,
-                         Round(*(f[lo:hi] for f in scan_rounds)),
-                         setup.stacked, setup.base_keys, setup.batch,
-                         setup.test_x, setup.test_y, slots=slots,
-                         budgets=budgets, faults=setup.faults,
-                         env_seeds=setup.env_seeds)
+    outs, start = [], 0
+    if ctx is not None and ctx.resume:
+        res = _try_resume(ctx, {"pstate": pstate, "edge": edge}, dev)
+        if res is not None:
+            start, carry, outs = res
+            pstate, edge = carry["pstate"], carry["edge"]
+    lo = ends[start - 1] if start > 0 else 0
+    for bi in range(start, len(ends)):
+        hi = ends[bi]
+        out = _traced_block(
+            "fused_block",
+            lambda: block_host(pol, setup.spec, pstate, edge,
+                               Round(*(f[lo:hi] for f in scan_rounds)),
+                               setup.stacked, setup.base_keys, setup.batch,
+                               setup.test_x, setup.test_y, slots=slots,
+                               budgets=budgets, faults=setup.faults,
+                               env_seeds=setup.env_seeds,
+                               telemetry=telemetry),
+            bi, lo, hi, slots, pol.name, dev)
         pstate, edge = out.policy_state, out.edge_params
         outs.append(out)
+        if ctx is not None:
+            _after_block(ctx, bi, hi, {"pstate": pstate, "edge": edge}, out)
         lo = hi
-    return _collect_blocks(outs)
+    return _collect_blocks(outs, telemetry)
 
 
 def run_host(pol: FunctionalPolicy, setup: TrainingSetup, rounds_per_seed,

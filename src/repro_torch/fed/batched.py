@@ -122,27 +122,40 @@ def _capacity(assign: torch.Tensor, m: int, slots: Optional[int]) -> int:
     return slots
 
 
-def corrupt_scale(faults, env_seeds: torch.Tensor, t: torch.Tensor,
+def corrupt_slots(faults, env_seeds: torch.Tensor, t: torch.Tensor,
                   ci: torch.Tensor, valid: torch.Tensor,
                   num_clients: int) -> torch.Tensor:
-    """(S, M, slots) delta scale: ``faults.corrupt_scale`` on a filled
-    slot whose client's update is corrupted this round, 1 elsewhere.
-    ``env_seeds`` and ``t`` are (S,): the events come from each
-    element's env seed and round (``fault_draws(...).corr_u``), so every
-    tier draws the same ones."""
+    """(S, M, slots) bool: a filled slot whose client's update is
+    corrupted this round. ``env_seeds`` and ``t`` are (S,): the events
+    come from each element's env seed and round
+    (``fault_draws(...).corr_u``), so every tier draws the same ones."""
     corr_u = fault_draws(env_seeds, t, num_clients, ci.shape[1], ci.device,
                          ("corr_u",)).corr_u                   # (S, N)
     hit = corrupt_mask(faults, corr_u)
-    slot_c = torch.gather(hit, 1, ci.reshape(ci.shape[0], -1).long()
-                          ).view(ci.shape) & (valid > 0)
+    return torch.gather(hit, 1, ci.reshape(ci.shape[0], -1).long()
+                        ).view(ci.shape) & (valid > 0)
+
+
+def _scale(faults, slot_c: torch.Tensor, valid: torch.Tensor
+           ) -> torch.Tensor:
     return torch.where(slot_c, torch.full_like(valid, faults.corrupt_scale),
                        torch.ones_like(valid))
+
+
+def corrupt_scale(faults, env_seeds: torch.Tensor, t: torch.Tensor,
+                  ci: torch.Tensor, valid: torch.Tensor,
+                  num_clients: int) -> torch.Tensor:
+    """(S, M, slots) delta scale: ``faults.corrupt_scale`` on the
+    ``corrupt_slots``, 1 elsewhere."""
+    return _scale(faults, corrupt_slots(faults, env_seeds, t, ci, valid,
+                                        num_clients), valid)
 
 
 def train_round(spec: BatchedRoundSpec, edge: Dict[str, torch.Tensor],
                 assign: torch.Tensor, rd, stacked, base_keys: torch.Tensor,
                 batch: int, slots: Optional[int] = None, faults=None,
-                env_seeds: Optional[torch.Tensor] = None):
+                env_seeds: Optional[torch.Tensor] = None,
+                taps: bool = False):
     """Train one round's assignment for every batch element:
     ``assign`` (S, N) int, ``rd`` a ``Round`` of (S, ...) tensors (its
     ``t``, ``outcomes`` and ``latency`` are read), ``edge`` (S, M, ...).
@@ -150,7 +163,12 @@ def train_round(spec: BatchedRoundSpec, edge: Dict[str, torch.Tensor],
     corrupted slots' deltas; ``env_seeds`` (S,) then names each
     element's env seed. Returns ``(edge', participants (S,), train_loss
     (S, 2))``: local SGD's loss at its first and last step, the mean
-    over each element's filled slots (0 where it filled none)."""
+    over each element's filled slots (0 where it filled none). With
+    ``taps`` a fourth element holds what the telemetry taps read
+    (``obs.telemetry.round_frame``), each (S, M, slots): ``arrived``,
+    ``valid``, the Eq. 3 weights ``w``, the slot deltas' squared norms
+    ``slot_sq`` (after corruption) and ``slot_c``, the corrupted slots
+    (None without corruption)."""
     m, steps = spec.num_edge_servers, spec.steps
     s = assign.shape[0]
     with record_function("round.train"):
@@ -176,14 +194,19 @@ def train_round(spec: BatchedRoundSpec, edge: Dict[str, torch.Tensor],
         ends = step_loss[:, [0, -1]].reshape(s, m * cap, 2)
         train_loss = torch.where(filled, ends, torch.zeros_like(ends)).sum(
             dim=1) / torch.clamp(filled.sum(dim=1), min=1)
+        slot_c = None
         if faults is not None and faults.corrupt_rate > 0.0:
-            scale = corrupt_scale(faults, env_seeds, rd.t, ci, valid,
-                                  assign.shape[1])
-            deltas.mul_(scale.reshape(flat, 1))
+            slot_c = corrupt_slots(faults, env_seeds, rd.t, ci, valid,
+                                   assign.shape[1])
+            deltas.mul_(_scale(faults, slot_c, valid).reshape(flat, 1))
         w = effective_mask_multi(arrived.reshape(s * m, cap),
                                  tau.reshape(s * m, cap),
                                  valid.reshape(s * m, cap),
                                  spec.z_min).reshape(s, m, cap)
+        if taps:
+            record = {"arrived": arrived, "valid": valid, "w": w,
+                      "slot_sq": deltas.square().sum(dim=1).view(s, m, cap),
+                      "slot_c": slot_c}
     with record_function("round.aggregate"):
         new_edge = robust_aggregate_rows(edge, deltas.view(s * m, cap, d),
                                          w, aggregator=spec.aggregator,
@@ -191,5 +214,7 @@ def train_round(spec: BatchedRoundSpec, edge: Dict[str, torch.Tensor],
         if (int(rd.t[0]) + 1) % spec.t_es == 0:
             new_edge = broadcast_global(new_edge)
     parts = (arrived * valid).sum(dim=(1, 2))
+    if taps:
+        return new_edge, parts, train_loss, record
     return new_edge, parts, train_loss
 

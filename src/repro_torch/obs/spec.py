@@ -2,11 +2,12 @@
 ``obs/spec.py``, :40-66), so that a spec reads and writes the same JSON
 on either package.
 
-``telemetry`` names the on-device metric taps, ``trace`` a JSONL span
-log, ``perfetto`` its Chrome-trace export and ``jax_profiler`` the
-reference's profiler capture directory. The port has none of them yet:
-``repro_torch.run`` refuses a spec whose ``ObsSpec`` is enabled (ROADMAP
-queue A item 3). All default off.
+``telemetry`` turns on the on-device metric taps of tiers 3 and 4
+(``obs.telemetry``, ``RunResult.telemetry``), ``trace`` names a JSONL
+span log (``obs.trace``), ``perfetto`` its Chrome-trace export, and
+``jax_profiler`` (the reference's name, kept so specs round-trip) a
+directory that receives a ``torch.profiler`` trace of the run. All
+default off.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ class ObsSpec:
     telemetry: bool = False              # on-device metric taps
     trace: Optional[str] = None          # JSONL span/event log path
     perfetto: Optional[str] = None       # Chrome trace_event export path
-    jax_profiler: Optional[str] = None   # the reference's profiler dir
+    jax_profiler: Optional[str] = None   # torch.profiler trace dir
 
     def __post_init__(self):
         if self.perfetto is not None and self.trace is None:

@@ -145,6 +145,14 @@ class FunctionalPolicy:
     def update(self, state, rd: Round, assign, aux=None):
         return state
 
+    def telemetry_tap(self, state, rd: Round) -> dict:
+        """Observability read of the state at select time
+        (``obs.telemetry``): (S,) metrics such as ``ucb_width`` and
+        ``underexplored``, derived without a draw or a state change. The
+        base policy reports none."""
+        del state, rd
+        return {}
+
 
 class PolicyAdapter:
     """One seed of a host-state policy, one round at a time, on

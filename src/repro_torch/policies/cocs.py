@@ -108,18 +108,52 @@ class COCS(FunctionalPolicy):
         ``(values, under)`` (both (S, N, M))."""
         if h is None or z is None:
             z, h = self._params()
+        cubes, counts, under, bonus = self._confidence(state, rd, h, z)
+        est = self._gather(state.p_hat, cubes)
+        optimistic = torch.where(counts == 0, torch.ones_like(est),
+                                 torch.clamp(est + bonus, max=1.0))
+        return torch.where(under, optimistic, est), under
+
+    def _confidence(self, state: COCSState, rd: Round, h: HParam,
+                    z: ZParam):
+        """Each pair's cube, visit count, under-explored flag and UCB
+        bonus ``0.35 * sqrt(2 log t / count)`` (all (S, N, M))."""
         cubes = self._cubes(rd.contexts, h)
         counts = self._gather(state.counters, cubes)
-        est = self._gather(state.p_hat, cubes)
         t1 = rd.t.to(torch.int32) + 1
         under = rd.eligible & (counts <= self.k_of_t(t1, z)[:, None, None])
         tf = torch.clamp(t1.to(torch.float32), min=2.0)
         bonus = BONUS_SCALE * sqrt_rn(
             (2.0 * torch.log(tf))[:, None, None]
             / torch.clamp(counts, min=1))
-        optimistic = torch.where(counts == 0, torch.ones_like(est),
-                                 torch.clamp(est + bonus, max=1.0))
-        return torch.where(under, optimistic, est), under
+        return cubes, counts, under, bonus
+
+    def telemetry_sums(self, state: COCSState, rd: Round) -> dict:
+        """The sums behind ``telemetry_tap``, per batch element: the UCB
+        width over the eligible pairs, their count, and the count of
+        under-explored ones."""
+        z, h = self._params()
+        _, counts, under, bonus = self._confidence(state, rd, h, z)
+        width = torch.where(counts == 0, torch.ones_like(bonus),
+                            torch.clamp(bonus, max=1.0))
+        eligible = rd.eligible
+        return {"width_sum": torch.where(eligible, width,
+                                         torch.zeros_like(width))
+                .sum(dim=(1, 2)),
+                "eligible": eligible.sum(dim=(1, 2)),
+                "under": under.sum(dim=(1, 2))}
+
+    def telemetry_tap(self, state: COCSState, rd: Round) -> dict:
+        """The CC-MAB confidence profile at select time
+        (``obs.telemetry``): the eligible pairs' mean UCB width, the
+        select's ``0.35 * sqrt(2 log t / count)`` capped at 1 and 1 for
+        an unvisited cube, and the count of under-explored eligible pairs
+        (Theorem 2's ``K(t)``). Gathers on the state: no draw, no state
+        change."""
+        sums = self.telemetry_sums(state, rd)
+        n_el = torch.clamp(sums["eligible"], min=1)
+        return {"ucb_width": sums["width_sum"] / n_el,
+                "underexplored": sums["under"].to(torch.float32)}
 
     def select_with_budgets(self, state: COCSState, rd: Round,
                             budgets: torch.Tensor):

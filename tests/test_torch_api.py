@@ -135,29 +135,35 @@ def _spec(**kw):
 
 
 REFUSALS = {
-    # faults, robust rules and transposed_gemm run now; what a spec that
-    # holds them also asks for and the port lacks is still refused
+    # faults, robust rules, transposed_gemm, obs, checkpoints and the
+    # health guard run now; what a spec that holds them also asks for
+    # and the port lacks (a sharded layout) is still refused
     "host env": (_spec(env=TA.EnvSpec(
         "paper", faults=FaultSpec(dropout_rate=0.2)),
-        obs=ObsSpec(telemetry=True)), "item 3"),
+        obs=ObsSpec(telemetry=True), shard_seeds=True), "item 4"),
     "host env, training": (_spec(env=TA.EnvSpec("paper", backend="host"),
                                  train=TA.TrainSpec(transposed_gemm=True),
-                                 eval=TA.EvalSpec(checkpoint_dir="ckpt")),
-                           "item 3"),
+                                 eval=TA.EvalSpec(checkpoint_dir="ckpt"),
+                                 shard=TA.ShardSpec(clients=2)),
+                           "item 4"),
     # a grid runs now; every cell's refusals come before any work
-    "grid": (_spec(obs=ObsSpec(telemetry=True)).grid(budget=[1.0, 2.0]),
-             "item 3"),
+    "grid": (_spec(obs=ObsSpec(telemetry=True),
+                   shard=TA.ShardSpec(clients=2)).grid(budget=[1.0, 2.0]),
+             "item 4"),
     "transposed logreg": (_spec(train=TA.TrainSpec(transposed_gemm=True),
                                 shard=TA.ShardSpec(clients=2)), "item 4"),
     "faults": (_spec(env=TA.EnvSpec(
         "metropolis-1k", faults=FaultSpec(outage_rate=0.1)),
-        eval=TA.EvalSpec(health="halt")), "item 3"),
-    "obs": (_spec(obs=ObsSpec(telemetry=True)), "item 3"),
-    "checkpoint": (_spec(eval=TA.EvalSpec(checkpoint_dir="ckpt")),
-                   "item 3"),
-    "health": (_spec(eval=TA.EvalSpec(health="record")), "item 3"),
+        eval=TA.EvalSpec(health="halt"), shard_seeds=True), "item 4"),
+    "obs": (_spec(obs=ObsSpec(telemetry=True, trace="trace.jsonl"),
+                  shard=TA.ShardSpec(clients=2)), "item 4"),
+    "checkpoint": (_spec(eval=TA.EvalSpec(checkpoint_dir="ckpt"),
+                         env=TA.EnvSpec("metropolis-1m")), "item 4"),
+    "health": (_spec(eval=TA.EvalSpec(health="record"), shard_seeds=True),
+               "item 4"),
     "aggregator": (_spec(train=TA.TrainSpec(aggregator="median"),
-                         eval=TA.EvalSpec(resume=True)), "item 3"),
+                         eval=TA.EvalSpec(resume=True),
+                         shard=TA.ShardSpec(clients=2)), "item 4"),
     "shard": (_spec(shard=TA.ShardSpec(clients=2)), "item 4"),
     "shard seeds": (_spec(shard_seeds=True), "item 4"),
     "mesh cohort": (_spec(env=TA.EnvSpec("metropolis-100k")), "item 4"),

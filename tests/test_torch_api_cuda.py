@@ -3,8 +3,11 @@ the path's kernels (no plain route), matches the CPU run of the same
 spec, and refuses ``use_kernel=False``; tiers 2 and 3 and a grid on the
 host env match the CPU and the sequential runs; faulty tiers 3 and 4
 under each Eq. 3 rule (B3 under ``mean`` only) and ``logreg-t`` match
-the CPU, and each rule on the card matches it on the CPU. These need an
-NVIDIA GPU; on a machine without one they skip. On the card:
+the CPU, and each rule on the card matches it on the CPU; a killed and
+resumed tier-4 run equals the uninterrupted one bitwise, a CUDA
+checkpoint is refused on the CPU, the taps leave decisions bitwise and
+the tracer splits each block's time. These need an NVIDIA GPU; on a
+machine without one they skip. On the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_api_cuda.py
 """
@@ -172,3 +175,82 @@ def test_robust_rules_on_card_match_cpu(dev):
         for k in b:
             gap = (a[k].cpu() - b[k]).abs().max() / b[k].abs().max()
             assert gap <= 1e-5, (rule, k)
+
+
+# -- checkpoints, the health guard and the taps on the card -------------------
+
+
+def _resilient_spec(policy="cocs", **eval_kw):
+    return api.ExperimentSpec(
+        policy=api.PolicySpec(policy),
+        env=api.EnvSpec("paper", backend="device",
+                        overrides=(("lr", 0.01),)),
+        train=api.TrainSpec(), eval=api.EvalSpec(eval_every=4, **eval_kw),
+        horizon=16, seeds=(0, 1))
+
+
+def _kill(spec, ckpt, blocks, dev):
+    from repro_torch.api.run import build_env, build_policy
+    from repro_torch.experiment.sweep import SimulatedKill, sweep_experiments
+    env = build_env(spec.env)
+    pol = build_policy(spec.policy, env.cfg, spec.horizon)
+    with pytest.raises(SimulatedKill):
+        sweep_experiments({spec.policy.name: pol}, env, list(spec.seeds),
+                          spec.horizon, eval_every=4, checkpoint_dir=ckpt,
+                          stop_after_blocks=blocks, device=dev)
+
+
+@pytest.mark.parametrize("policy,kernel", [("cocs", "budgeted_topk"),
+                                           ("random", "random_assign")])
+def test_resume_bitwise_on_card(dev, tmp_path, policy, kernel):
+    """Two uninterrupted runs are bitwise equal; a run killed after two
+    intervals and resumed equals them, and its halves launch B1, the
+    selection and B3 once a round between them."""
+    spec = _resilient_spec(policy)
+    a = repro_torch.run(spec, device=dev)
+    b = repro_torch.run(spec, device=dev)
+    ck = str(tmp_path / "ck")
+    common.reset_launches()
+    _kill(spec, ck, 2, dev)
+    got = repro_torch.run(_resilient_spec(policy, checkpoint_dir=ck,
+                                          resume=True), device=dev)
+    for k in ("context_pairwise", kernel, "masked_aggregate"):
+        assert common.LAUNCHES[k] == spec.horizon, k
+    for f in ("selections", "utilities", "participants", "explored",
+              "accuracy", "loss"):
+        assert (getattr(a, f) == getattr(b, f)).all(), f
+        assert (getattr(a, f) == getattr(got, f)).all(), f
+
+
+def test_cuda_checkpoint_refused_on_cpu(dev, tmp_path):
+    ck = str(tmp_path / "ck")
+    _kill(_resilient_spec(), ck, 1, dev)
+    with pytest.raises(ValueError, match="device type"):
+        repro_torch.run(_resilient_spec(checkpoint_dir=ck, resume=True),
+                        device="cpu")
+
+
+def test_taps_health_and_tracer_on_card(dev, tmp_path):
+    """Taps on leave every decision bitwise; a clean run records no
+    health event; the trace splits each block into dispatch and
+    execute."""
+    from repro_torch.obs.spec import ObsSpec
+    trace = str(tmp_path / "run.jsonl")
+    off = repro_torch.run(_resilient_spec(), device=dev)
+    spec = dataclasses.replace(
+        _resilient_spec(health="record"),
+        obs=ObsSpec(telemetry=True, trace=trace))
+    on = repro_torch.run(spec, device=dev)
+    for f in ("selections", "utilities", "participants", "explored",
+              "accuracy"):
+        assert (getattr(off, f) == getattr(on, f)).all(), f
+    assert on.health == {"checked": 4, "events": []}
+    sel = (on.selections >= 0).sum(axis=2)
+    assert (on.telemetry["series"]["selected"] == sel).all()
+    assert (on.telemetry["series"]["arrived"] == on.participants).all()
+    import json
+    blocks = [r for r in map(json.loads, open(trace))
+              if r["name"] == "fused_block_device"]
+    assert len(blocks) == 4
+    assert all(b["execute_us"] >= 0 and b["dispatch_us"] > 0
+               for b in blocks)
