@@ -190,9 +190,32 @@ Phases, in order; any failure exits non-zero before a result is printed:
     trace naming B1's kernel. Prints, not gated: rounds/s with
     checkpoints, health, taps, checkpoints and tracer on against off,
     and a checkpoint write's ms and bytes.
+19. the trial bench through ``repro_torch.trials.run_suite`` on the
+    card, every dispatch of its runner (``api.run``) counted on its own:
+    ``paper-fig4-quick`` and ``robustness-panel`` as written, and all
+    three with ``paper-fig3`` at ``@smoke`` (fig3 as written is phase
+    16's), into ledgers: each record's tier (fig3 1; fig4 3, or 2 for
+    CUCB and LinUCB; robustness 3), one dispatch a policy and sequential
+    coordinate with ``budget`` batched, each dispatch's launches (B2 a
+    round for COCS and the Oracle, Random's scan a round for Random, B3
+    a round when it trains under ``mean`` and never under a robust rule,
+    no walk host sync), finite accuracy, and the panel's claim that at
+    ``corrupt_rate`` 0.25 ``median`` and ``trimmed_mean`` beat ``mean``
+    for each policy; each suite's wall s, cells/s and every record's
+    ``us_per_call``. The ``@smoke`` variants on the CPU against CUDA:
+    ``check_suite`` with 0 failures, utilities, regret and participation
+    equal, final accuracy within ``TRIAL_ACC_TOL``. A resume of
+    fig4@smoke on its ledger dispatches nothing; with one COCS entry
+    dropped it runs that budget grid alone, regret as first recorded. A
+    ``metropolis-1k`` suite (COCS, Oracle, Random, budgets 8, 12, 16, 2
+    seeds, 100 rounds, analytic ``true_p``): one dispatch a policy with
+    B1 under the runner, each cell's selections equal to its sequential
+    run. ``python -m repro_torch.trials run``/``check`` and ``python -m
+    repro_torch.launch.train --paper`` as subprocesses.
 
 Phases 4, 8, 9, 10, 13, 14, 15, 16, 17 and 18 each zero the launch
-counts just before their run and read them just after.
+counts just before their run and read them just after; phase 19 just
+before and after each dispatch of the trial runner.
 
 The last three lines are the card's name and power limit, a JSON line
 of per-kernel numbers (with the launch floor), and ``{"ok": true,
@@ -3381,6 +3404,353 @@ def resilience_phase(dev):
     return out
 
 
+# -- phase 19: the trial bench ----------------------------------------------
+
+TRIAL_SUITES = ("paper-fig3", "paper-fig4-quick", "robustness-panel")
+# the variants run on CUDA, as written then @smoke; paper-fig3 as written
+# is phase 16's
+TRIAL_VARIANTS = {"paper-fig3": (True,)}
+HOST_POLICIES = ("CUCB", "LinUCB")     # tier 2 when they train
+TRIAL_ACC_TOL = 1e-3                   # phase 16's CPU-against-CUDA gate
+DEVICE_SUITE_BUDGETS = (8.0, 12.0, 16.0)
+DEVICE_SUITE_ROUNDS = 100
+TRIAL_KERNELS = ("context_pairwise", "budgeted_topk", "random_assign",
+                 "flgreedy_walk", "masked_aggregate")
+
+
+class Dispatches:
+    """Wraps ``repro_torch.api.run``, the trial runner's one dispatch
+    point: each call's spec, result, wall s, launches and walk syncs,
+    the counts set to 0 just before the call and read just after."""
+
+    def __enter__(self):
+        from repro_torch import api
+        self.log = []
+        self._api, self._real = api, api.run
+
+        def run(spec, **kw):
+            res, wall, launches, syncs = counted(
+                lambda: self._real(spec, **kw))
+            self.log.append(dict(spec=spec, result=res, wall=wall,
+                                 launches=launches, syncs=syncs))
+            return res
+        api.run = run
+        return self
+
+    def __exit__(self, *exc):
+        self._api.run = self._real
+
+
+def dispatch_launches_ok(d, what):
+    """One dispatch's launches: B2 once a round for COCS and the Oracle,
+    Random's scan once a round for Random, B3 once a round when it
+    trains under ``mean`` and never under a robust rule, B1 once a round
+    on a device env and never on the host env, P3's walk never, no walk
+    host sync. A grid whose cells could not batch ran each cell in turn:
+    a round of each counts."""
+    from repro_torch.api.spec import ExperimentGrid
+    spec = d["spec"]
+    grid = isinstance(spec, ExperimentGrid)
+    base = spec.base if grid else spec
+    results = d["result"].results if grid else [d["result"]]
+    rounds = base.horizon * (1 if results[0].batched_axes else len(results))
+    name = base.policy.name
+    mean = base.train is not None and base.train.aggregator == "mean"
+    want = {"context_pairwise": rounds if results[0].env_backend == "device"
+            else 0,
+            "budgeted_topk": rounds if name in ("cocs", "oracle") else 0,
+            "random_assign": rounds if name == "random" else 0,
+            "flgreedy_walk": 0,
+            "masked_aggregate": rounds if mean else 0}
+    got = {k: d["launches"][k] for k in TRIAL_KERNELS}
+    if got != want or any(d["syncs"].values()):
+        fail(f"{what}: {name} launched {got}, expected {want}; walk syncs "
+             f"{d['syncs']}")
+    return got
+
+
+def trial_run(suite, dev, ledger, smoke=False, resume=False):
+    """``run_suite`` on ``dev`` under :class:`Dispatches`: (result, wall
+    s, dispatches)."""
+    from repro_torch.trials import run_suite
+    with Dispatches() as disp:
+        t0 = time.perf_counter()
+        result = run_suite(suite, smoke=smoke, ledger=ledger, resume=resume,
+                           device=dev)
+        wall = time.perf_counter() - t0
+    return result, wall, disp.log
+
+
+def trial_gates(suite, result, log, what):
+    """Tiers, batched axes, launches a dispatch and finite accuracy of
+    one suite run. Returns the launches summed over its dispatches."""
+    import numpy as np
+    from repro_torch.api.spec import GRID_AXES
+    batchable = tuple(a for a, _ in suite.axes if GRID_AXES[a][0])
+    n_seq = 1
+    for a, v in suite.axes:
+        n_seq *= 1 if GRID_AXES[a][0] else len(v)
+    if len(log) != len(suite.policies) * n_seq:
+        fail(f"{what}: {len(log)} dispatches, expected one a policy and "
+             f"sequential coordinate ({len(suite.policies) * n_seq})")
+    total = dict.fromkeys(TRIAL_KERNELS, 0)
+    for d in log:
+        for k, v in dispatch_launches_ok(d, what).items():
+            total[k] += v
+    for rec in result.records:
+        trains = suite.base.train is not None
+        tier = (2 if rec.policy in HOST_POLICIES else 3) if trains else 1
+        if rec.tier != tier:
+            fail(f"{what} {rec.cell_id}: tier {rec.tier}, expected {tier}")
+        want = () if rec.policy in HOST_POLICIES else batchable
+        if tuple(rec.batched_axes) != want:
+            fail(f"{what} {rec.cell_id}: batched axes {rec.batched_axes}, "
+                 f"expected {want}")
+        if trains and not (rec.final_acc is not None
+                           and np.isfinite(rec.acc_curve).all()):
+            fail(f"{what} {rec.cell_id}: accuracy {rec.acc_curve}")
+        if not (rec.us_per_call and rec.us_per_call > 0):
+            fail(f"{what} {rec.cell_id}: us_per_call {rec.us_per_call}")
+    return total
+
+
+def robust_claim(result):
+    """The robustness panel's own claim: at ``corrupt_rate`` 0.25 the
+    robust rules beat ``mean`` in final accuracy, for each policy."""
+    acc = {(r.policy, dict(r.coord)["aggregator"]): r.final_acc
+           for r in result.records if dict(r.coord)["corrupt_rate"] == 0.25}
+    for display in dict(result.suite.policies):
+        mean = acc[(display, "mean")]
+        for rule in ("median", "trimmed_mean"):
+            if not acc[(display, rule)] > mean:
+                fail(f"robustness-panel {display}: {rule} final accuracy "
+                     f"{acc[(display, rule)]} does not beat mean's {mean} "
+                     f"at corrupt_rate 0.25")
+    return {f"{p}/{rule}": a for (p, rule), a in acc.items()}
+
+
+def trials_cpu_vs_cuda(name, cpu, gpu):
+    """``check_suite`` of the CUDA ledger against the CPU's, and the
+    stricter gate: utilities, regret and participation equal, final
+    accuracy within ``TRIAL_ACC_TOL``. Returns the accuracy gap."""
+    from repro_torch.trials import check_suite, load_entries
+    label = f"{name}@smoke"
+    n, report = check_suite(load_entries(cpu), load_entries(gpu), label)
+    if n:
+        fail(f"{label}: check_suite CUDA against CPU: {n} failures: "
+             f"{[r for r in report if r.endswith('FAIL')]}")
+    want, got = load_entries(cpu), load_entries(gpu)
+    gap = 0.0
+    for entry_name, w in want.items():
+        mw, mg = w["metrics"], got[entry_name]["metrics"]
+        for key in ("cum_utility", "cum_utility_seeds", "participation",
+                    "regret", "regret_seeds"):
+            if mw.get(key) != mg.get(key):
+                fail(f"{entry_name}: {key} {mw.get(key)} on the CPU, "
+                     f"{mg.get(key)} on CUDA")
+        if "final_acc" in mw:
+            gap = max(gap, abs(mw["final_acc"] - mg["final_acc"]))
+    if gap > TRIAL_ACC_TOL:
+        fail(f"{label}: final accuracy CPU against CUDA {gap}")
+    return gap
+
+
+def trials_resume(dev, ledger, first):
+    """A resume of ``paper-fig4-quick@smoke`` on its ledger dispatches
+    nothing; with one non-Oracle entry dropped only that cell's dispatch
+    group runs, and its regret is the first run's."""
+    from repro_torch.kernels import common
+    common.reset_launches()
+    again, _, log = trial_run("paper-fig4-quick", dev, ledger, smoke=True,
+                              resume=True)
+    moved = {k: common.LAUNCHES[k] for k in TRIAL_KERNELS}
+    if log or any(moved.values()):
+        fail(f"resume of a complete ledger: {len(log)} dispatches, "
+             f"launches {moved}")
+    for rec in first.records:
+        if again.record(rec.policy, rec.coord).to_entry()["metrics"] \
+                != rec.to_entry()["metrics"]:
+            fail(f"resume: {rec.name} differs from the first run")
+    drop = "trial_paper-fig4-quick@smoke_COCS_budget_5.0"
+    with open(ledger) as f:
+        entries = json.load(f)
+    with open(ledger, "w") as f:
+        json.dump([e for e in entries if e["name"] != drop], f)
+    resumed, wall, log = trial_run("paper-fig4-quick", dev, ledger,
+                                   smoke=True, resume=True)
+    if len(log) != 1 or log[0]["spec"].base.policy.name != "cocs":
+        fail(f"resume after dropping {drop}: {len(log)} dispatches")
+    launches = dispatch_launches_ok(log[0], "resume")
+    want = first.record("COCS", (("budget", 5.0),))
+    got = resumed.record("COCS", (("budget", 5.0),))
+    if (got.regret, got.cum_utility_seeds) != (want.regret,
+                                               want.cum_utility_seeds):
+        fail(f"resume: COCS budget 5.0 regret {got.regret}, first run "
+             f"{want.regret}")
+    print(f"  resume of fig4-quick@smoke on its ledger: 0 dispatches, 0 "
+          f"launches, records equal; {drop} dropped: 1 dispatch (the COCS "
+          f"budget grid, launches {launches}) in {wall:.3f} s, regret "
+          f"{got.regret} as first recorded")
+    return {"dropped": drop, "wall_s": wall, "launches": launches}
+
+
+def device_suite():
+    """COCS, Oracle and Random on ``metropolis-1k`` (analytic true_p)
+    over a budget axis, 2 seeds, bandit tier 1: B1 under the runner."""
+    from repro_torch import api
+    from repro_torch.core.utility import POLICY_TABLE
+    from repro_torch.trials import TrialSuite
+    return TrialSuite(
+        name="metropolis-1k-budgets",
+        base=api.ExperimentSpec(
+            env=api.EnvSpec("metropolis-1k", true_p="analytic"),
+            horizon=DEVICE_SUITE_ROUNDS, seeds=BANDIT_SEEDS),
+        policies=tuple((d, api.PolicySpec(POLICY_TABLE[d][0],
+                                          seed_offset=POLICY_TABLE[d][1]))
+                       for d in ("COCS", "Oracle", "Random")),
+        axes=(("budget", DEVICE_SUITE_BUDGETS),))
+
+
+def trials_device_suite(dev, ledger):
+    import numpy as np
+    import repro_torch
+    suite = device_suite()
+    result, wall, log = trial_run(suite, dev, ledger)
+    launches = trial_gates(suite, result, log, suite.name)
+    t0 = time.perf_counter()
+    for d in log:
+        for cell, res in zip(d["spec"].expand(), d["result"].results):
+            if res.env_backend != "device":
+                fail(f"{suite.name}: a {res.env_backend} env")
+            seq = repro_torch.run(cell, device=dev)
+            if not np.array_equal(seq.selections, res.selections):
+                fail(f"{suite.name} {cell.policy.name} budget "
+                     f"{cell.policy.budget}: the batched selections differ "
+                     f"from the sequential run's")
+    seq_s = time.perf_counter() - t0
+    regret = {r.cell_id: r.regret for r in result.records
+              if r.regret is not None}
+    print(f"  {suite.name}: {len(result.records)} cells in {len(log)} "
+          f"dispatches, {wall:.3f} s ({len(result.records) / wall:.3f} "
+          f"cells/s); launches {launches}; every cell's selections equal "
+          f"to its sequential run ({seq_s:.1f} s); regret {regret}")
+    return {"wall_s": wall, "cells": len(result.records),
+            "dispatches": len(log), "launches": launches,
+            "sequential_s": seq_s, "regret": regret}
+
+
+def trials_clis(tmp):
+    """``python -m repro_torch.trials run``/``check`` and ``python -m
+    repro_torch.launch.train --paper`` as subprocesses."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+
+    def call(*args, timeout=300):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", *args], cwd=ROOT,
+                             env=env, capture_output=True, text=True,
+                             timeout=timeout)
+        return out, time.perf_counter() - t0
+
+    ledger = os.path.join(tmp, "cli.json")
+    label = "paper-fig4-quick@smoke"
+    run, run_s = call("repro_torch.trials", "run", "paper-fig4-quick",
+                      "--smoke", "--ledger", ledger)
+    if run.returncode or "appended 10 records" not in run.stdout:
+        fail(f"trials run: exit {run.returncode}: {run.stdout[-2000:]} "
+             f"{run.stderr[-2000:]}")
+    check = ["repro_torch.trials", "check", "--baseline", ledger,
+             "--suite", label, "--current"]
+    same, _ = call(*check, ledger)
+    with open(ledger) as f:
+        entries = json.load(f)
+    entries[1]["metrics"]["cum_utility"] += 1.0
+    changed = os.path.join(tmp, "cli_changed.json")
+    with open(changed, "w") as f:
+        json.dump(entries, f)
+    worse, _ = call(*check, changed)
+    if same.returncode != 0 or worse.returncode != 1:
+        fail(f"trials check: exit {same.returncode} on the ledger itself, "
+             f"{worse.returncode} with one cum_utility changed: "
+             f"{worse.stdout[-1000:]}")
+    train, train_s = call("repro_torch.launch.train", "--paper", "--rounds",
+                          "10", "--eval-every", "5")
+    final = [line for line in train.stdout.splitlines()
+             if line.startswith("final accuracy: ")]
+    if train.returncode or not final or not math.isfinite(
+            float(final[0].split(": ")[1])):
+        fail(f"launch.train --paper: exit {train.returncode}: "
+             f"{train.stdout[-1000:]} {train.stderr[-1000:]}")
+    acc = float(final[0].split(": ")[1])
+    print(f"  python -m repro_torch.trials run paper-fig4-quick --smoke: "
+          f"exit 0 in {run_s:.1f} s; check exits 0 on itself, 1 with one "
+          f"cum_utility changed; python -m repro_torch.launch.train --paper "
+          f"--rounds 10: exit 0 in {train_s:.1f} s, final accuracy {acc}")
+    return ledger, {"run_s": run_s, "train_s": train_s, "train_acc": acc}
+
+
+def trials_phase(dev):
+    """Phase 19: the trial bench on the card through ``run_suite``. Each
+    suite runs on CUDA as written and at ``@smoke``, except paper-fig3,
+    which phase 16 runs as written and which runs here at ``@smoke``
+    only (phase 19's time); each ``@smoke`` run also runs on the CPU."""
+    import tempfile
+    from repro_torch.trials import check_suite, get_suite, load_entries
+    t_phase = time.perf_counter()
+    out = {"suites": {}, "smoke": {}}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        for name in TRIAL_SUITES:
+            suite = get_suite(name)
+            for smoke in TRIAL_VARIANTS.get(name, (False, True)):
+                label = suite.label(smoke)
+                ledger = os.path.join(tmp, f"{label}.cuda.json")
+                result, wall, log = trial_run(name, dev, ledger, smoke)
+                launches = trial_gates(suite, result, log, label)
+                row = {"wall_s": wall, "cells": len(result.records),
+                       "cells_per_s": len(result.records) / wall,
+                       "dispatches": len(log), "launches": launches,
+                       "us_per_call": {r.cell_id: r.us_per_call
+                                       for r in result.records}}
+                if name == "robustness-panel":
+                    row["final_acc_at_0.25"] = robust_claim(result)
+                out["suites"][label] = row
+                print(f"  {label}: {len(result.records)} cells in "
+                      f"{len(log)} dispatches, {wall:.3f} s = "
+                      f"{row['cells_per_s']:.3f} cells/s; launches "
+                      f"{launches}")
+                print("    us_per_call: " + ", ".join(
+                    f"{k} {v:.0f}" for k, v in row["us_per_call"].items()))
+                if name == "robustness-panel":
+                    print(f"    final accuracy at corrupt_rate 0.25: "
+                          f"{row['final_acc_at_0.25']}")
+            # the @smoke variant on the CPU against its CUDA run
+            cpu = os.path.join(tmp, f"{label}.cpu.json")
+            t0 = time.perf_counter()
+            trial_run(name, "cpu", cpu, smoke=True)
+            cpu_s = time.perf_counter() - t0
+            gap = trials_cpu_vs_cuda(name, cpu, ledger)
+            out["smoke"][name] = {"cpu_s": cpu_s, "acc_gap": gap}
+            print(f"  {label} on the CPU in {cpu_s:.1f} s against CUDA: "
+                  f"check_suite 0 failures, utilities, regret and "
+                  f"participation equal, final accuracy gap {gap}")
+            if name == "paper-fig4-quick":
+                fig4_smoke = (ledger, result)
+
+        gpu, first = fig4_smoke
+        out["resume"] = trials_resume(dev, gpu, first)
+        out["device_suite"] = trials_device_suite(
+            dev, os.path.join(tmp, "device.json"))
+        cli_ledger, out["cli"] = trials_clis(tmp)
+        label = "paper-fig4-quick@smoke"
+        n, report = check_suite(load_entries(gpu), load_entries(cli_ledger),
+                                label)
+        if n:
+            fail(f"the CLI's {label} ledger against run_suite's: {report}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 19 in {out['phase_s']:.1f} s")
+    return out
+
+
 # -- phase 11: the serve slice on CPU against CUDA ---------------------------
 
 def lm_cpu_vs_cuda(dev):
@@ -3568,6 +3938,11 @@ def main() -> int:
           "and 4: checkpoints and resume, health, taps, tracer)")
     resilience = resilience_phase(dev)
 
+    print("phase 19: the trial bench (repro_torch.trials.run_suite: "
+          "paper-fig3, paper-fig4-quick, robustness-panel, their @smoke on "
+          "the CPU against CUDA, resume, a metropolis-1k suite, the CLIs)")
+    trials = trials_phase(dev)
+
     # each kernel's launches on its own main path: B1-B3 and Random's
     # scan the HFL runs of phase 4 (three policies), P3's walk the gated
     # non-convex run, B4 the qwen2 serve (the shape its row is timed at;
@@ -3601,7 +3976,7 @@ def main() -> int:
                       hfl_cpu_vs_cuda, "nonconvex": nonconvex,
                       "bandit": bandit, "panels": panels,
                       "faults": faults, "resilience": resilience,
-                      "serve": serve_rows}))
+                      "trials": trials, "serve": serve_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

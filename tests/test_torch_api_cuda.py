@@ -6,8 +6,10 @@ under each Eq. 3 rule (B3 under ``mean`` only) and ``logreg-t`` match
 the CPU, and each rule on the card matches it on the CPU; a killed and
 resumed tier-4 run equals the uninterrupted one bitwise, a CUDA
 checkpoint is refused on the CPU, the taps leave decisions bitwise and
-the tracer splits each block's time. These need an NVIDIA GPU; on a
-machine without one they skip. On the card:
+the tracer splits each block's time; the trial bench's training suite on
+the card passes ``check_suite`` against the CPU, ``run_suite`` takes
+CUDA by default and a resume on the card dispatches nothing. These need
+an NVIDIA GPU; on a machine without one they skip. On the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_api_cuda.py
 """
@@ -254,3 +256,58 @@ def test_taps_health_and_tracer_on_card(dev, tmp_path):
     assert len(blocks) == 4
     assert all(b["execute_us"] >= 0 and b["dispatch_us"] > 0
                for b in blocks)
+
+
+# -- the trial bench on the card ---------------------------------------------
+
+
+def _trial_suite():
+    from repro_torch.core.utility import POLICY_TABLE
+    from repro_torch.trials import TrialSuite
+    return TrialSuite(
+        name="mini-train",
+        base=api.ExperimentSpec(
+            env=api.EnvSpec("paper", config="mnist-convex",
+                            overrides=(("lr", 0.01),)),
+            train=api.TrainSpec(model="logreg"),
+            eval=api.EvalSpec(eval_every=4), horizon=8, seeds=(0,)),
+        policies=tuple((d, api.PolicySpec(POLICY_TABLE[d][0],
+                                          seed_offset=POLICY_TABLE[d][1]))
+                       for d in ("Oracle", "COCS", "CUCB")),
+        axes=(("budget", (3.5, 5.0)),))
+
+
+def test_trial_suite_on_card_matches_cpu(dev, tmp_path):
+    from repro_torch import trials
+    suite = _trial_suite()
+    cpu, gpu = str(tmp_path / "cpu.json"), str(tmp_path / "gpu.json")
+    want = trials.run_suite(suite, ledger=cpu, device="cpu")
+    got = trials.run_suite(suite, ledger=gpu, device=dev)
+    n, report = trials.check_suite(trials.load_entries(cpu),
+                                   trials.load_entries(gpu), suite.name)
+    assert n == 0, report
+    for w, g in zip(want.records, got.records):
+        assert (g.policy, g.coord, g.tier) == (w.policy, w.coord, w.tier)
+        assert g.cum_utility_seeds == w.cum_utility_seeds
+        assert g.regret_seeds == w.regret_seeds
+        assert g.participation == w.participation
+
+
+def test_trial_suite_defaults_to_cuda_and_resumes_without_dispatch(
+        dev, tmp_path, monkeypatch):
+    from repro_torch import trials
+    suite = _trial_suite()
+    path = str(tmp_path / "l.json")
+    common.reset_launches()
+    first = trials.run_suite(suite, ledger=path)
+    # two budget grids (Oracle, COCS) and two CUCB cells, 8 rounds each
+    assert common.LAUNCHES["budgeted_topk"] == 2 * 8
+    assert common.LAUNCHES["masked_aggregate"] == 4 * 8
+    calls = []
+    monkeypatch.setattr(api, "run", lambda *a, **k: calls.append(a))
+    common.reset_launches()
+    again = trials.run_suite(suite, ledger=path, resume=True)
+    assert calls == [] and not any(common.LAUNCHES.values())
+    for rec in first.records:
+        assert again.record(rec.policy, rec.coord).to_entry()["metrics"] \
+            == rec.to_entry()["metrics"]
