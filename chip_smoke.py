@@ -16,8 +16,9 @@
 Phases, in order; any failure exits non-zero before a result is printed:
 
 1. header: the card (nvidia-smi), torch and CUDA versions; TF32 off;
-2. build the eight CUDA kernels from ``src/repro_torch/csrc`` (the six
-   that replace TPU kernels, Random's scan and P3's walk);
+2. build the nine CUDA sources from ``src/repro_torch/csrc`` (the six
+   that replace TPU kernels, B2's with its tile grid, Random's scan,
+   P3's walk and P2's segment walk);
 3. each HFL kernel against its plain PyTorch version on the card, at the
    main path's shapes and at awkward ones, with its device time (summed
    kernel time under torch.profiler, the median of three traces, with
@@ -117,19 +118,19 @@ Phases, in order; any failure exits non-zero before a result is printed:
     and on CUDA (cuDNN's deterministic algorithms), on an accuracy gap
     above 1e-3 (2 of 2000 test samples) or any selection row that
     differs. The test loss is printed, not gated: on this synthetic data
-    it shows no trend over 60 rounds at either lr (accuracy stays near
+    it shows no trend over 30 rounds at either lr (accuracy stays near
     0.1). B3 at the CNN's width at the capacities the gated run used;
 15. the bandit tier (tier 1, Fig. 3's workload) through
     ``repro_torch.run``: paper-fig3's three policies (``POLICY_TABLE``'s
-    seed offsets) on ``metropolis-1k``, 2 seeds, 400 rounds with
+    seed offsets) on ``metropolis-1k``, 2 seeds, 200 rounds with
     analytic ``true_p``, each with B1 and its selection kernel launched
     once a round, no walk host sync, every (seed, round, ES) spend
     within budget (one replay of the env), utilities equal to
-    participants; the same specs with Monte-Carlo ``true_p`` for 50
-    rounds, bitwise equal to the analytic runs' first 50;
+    participants; the same specs with Monte-Carlo ``true_p`` for 25
+    rounds, bitwise equal to the analytic runs' first 25;
     ``run_bandit_device_grid`` over budgets (8, 12, 16) x 2 seeds,
     bitwise equal to one sequential run a budget; ``device:paper`` on
-    the CPU against CUDA, 40 rounds, at most 1% of rows differing; tier
+    the CPU against CUDA, 20 rounds, at most 1% of rows differing; tier
     4 through ``run`` (COCS, 10 rounds) equal to ``sweep_experiments``.
     Rounds/s per policy and mode, cumulative utility and regret against
     the Oracle are printed, not gated; ``--profile`` adds ``round.env``
@@ -208,12 +209,33 @@ Phases, in order; any failure exits non-zero before a result is printed:
     fig4@smoke on its ledger dispatches nothing; with one COCS entry
     dropped it runs that budget grid alone, regret as first recorded. A
     ``metropolis-1k`` suite (COCS, Oracle, Random, budgets 8, 12, 16, 2
-    seeds, 100 rounds, analytic ``true_p``): one dispatch a policy with
+    seeds, 40 rounds, analytic ``true_p``): one dispatch a policy with
     B1 under the runner, each cell's selections equal to its sequential
     run. ``python -m repro_torch.trials run``/``check`` and ``python -m
     repro_torch.launch.train --paper`` as subprocesses.
+20. the sharded cohort: B2's tile grid (``density_sort_tiles``, the TPU
+    kernel's own layout) and P2's walk over its segments
+    (``segment_walk``) bitwise their plain versions on five edge cases
+    (all ineligible, ties, zero budgets, an ES no client can afford,
+    negative costs) and at metropolis-100k's (2, 100000, 32) and
+    metropolis-1m's (1, 1000000, 64) widths on the env's round-0 costs
+    and eligibility, each timed cold, warm and as a call beside its
+    plain version, ``torch.sort`` of the tile rows and its bound;
+    ``hier_greedy_assign``/``hier_flgreedy_assign`` at (2, 1000, 12) and
+    1, 2, 4, 8 shards bitwise the dense kernels; metropolis-100k at full
+    width through ``repro_torch.run`` (COCS, analytic, batch 16, an eval
+    every 2 rounds, 4 rounds, seeds 0 and 1, the 16-d tiny data): dense
+    on the card (B1, the tile grid, the segment walk and B3 once a
+    round, no B2 one-pass launch, no walk host sync, spend within
+    budget, finite accuracy), then with ``ShardSpec(clients=4)`` and
+    ``ShardSpec(clients=2, seeds=2)`` on 4 ranks on ``cuda:0`` over gloo
+    (``launch.mesh.spawn_local``), every field of every rank bitwise the
+    dense card run, printing rounds/s, peak memory a rank and the
+    sharded walk's host syncs and collectives a round; metropolis-1m
+    dense, 1 seed, 2 rounds (finite accuracy, participants, spend within
+    budget, seconds, rounds/s, peak memory).
 
-Phases 4, 8, 9, 10, 13, 14, 15, 16, 17 and 18 each zero the launch
+Phases 4, 8, 9, 10, 13, 14, 15, 16, 17, 18 and 20 each zero the launch
 counts just before their run and read them just after; phase 19 just
 before and after each dispatch of the trial runner.
 
@@ -1215,7 +1237,9 @@ def cpu_vs_cuda(dev):
 # host syncs only. The gated run changes lr alone, to 0.005.
 NONCONVEX_SEEDS = (0, 1)
 NONCONVEX_DIVERGED = (10, 5)        # horizon, eval_every at lr = 0.1
-NONCONVEX_GATED = (60, 5)           # at lr = 0.005: an eval at each sync
+# at lr = 0.005: an eval at each sync; 30 rounds (was 60), cut to keep
+# the whole script well inside its time limit
+NONCONVEX_GATED = (30, 5)
 # seed 0 on the CPU and on CUDA, one round: later rounds amplify float32
 # differences (the packages' 10 local steps already move the test loss
 # by 7.5e-4 relative, tests/test_torch_cnn.py's R11 pin), and the
@@ -2263,14 +2287,15 @@ def prefill_drops(dev, cfg, params) -> list:
 # -- phase 15: the bandit tier -----------------------------------------------
 
 # paper-fig3's workload (Fig. 3: cumulative utility and regret against the
-# Oracle, no training) at full width: metropolis-1k, 2 seeds, its 400
-# rounds, through the facade (tier 1, analytic true_p)
+# Oracle, no training) at full width: metropolis-1k, 2 seeds, through the
+# facade (tier 1, analytic true_p); 200 of its 400 rounds, cut to keep the
+# whole script well inside its time limit (phase 16 runs fig3 as written)
 BANDIT_SEEDS = (0, 1)
-BANDIT_HORIZON = 400
-BANDIT_MC_ROUNDS = 50               # the Monte-Carlo mode's prefix
+BANDIT_HORIZON = 200
+BANDIT_MC_ROUNDS = 25               # the Monte-Carlo mode's prefix
 BANDIT_GRID_BUDGETS = (8.0, 12.0, 16.0)
-BANDIT_GRID_ROUNDS = 50
-BANDIT_CPU_ROUNDS = 40              # device:paper, CPU against CUDA
+BANDIT_GRID_ROUNDS = 25
+BANDIT_CPU_ROUNDS = 20              # device:paper, CPU against CUDA
 BANDIT_TIER4_ROUNDS = 10
 BANDIT_PROFILE_ROUNDS = 5
 
@@ -3413,7 +3438,7 @@ TRIAL_VARIANTS = {"paper-fig3": (True,)}
 HOST_POLICIES = ("CUCB", "LinUCB")     # tier 2 when they train
 TRIAL_ACC_TOL = 1e-3                   # phase 16's CPU-against-CUDA gate
 DEVICE_SUITE_BUDGETS = (8.0, 12.0, 16.0)
-DEVICE_SUITE_ROUNDS = 100
+DEVICE_SUITE_ROUNDS = 40              # cut from 100 for the time limit
 TRIAL_KERNELS = ("context_pairwise", "budgeted_topk", "random_assign",
                  "flgreedy_walk", "masked_aggregate")
 
@@ -3793,6 +3818,391 @@ def lm_cpu_vs_cuda(dev):
     return out
 
 
+# -- phase 20: the sharded cohort --------------------------------------------
+
+MESH_SEEDS = (0, 1)
+MESH_ROUNDS = 4
+MESH_EVERY = 2
+MESH_LAYOUTS = ((4, 1), (2, 2))        # (clients, seeds) ranks on cuda:0
+MESH_1M_ROUNDS = 2
+MESH_TIMEOUT = 600.0
+# above B2's one-pass limit, the edge cases of the tile grid and its walk
+TILE_EDGE_CASES = ((2, 3000, 12, "ineligible"), (2, 3000, 12, "ties"),
+                   (2, 3000, 12, "zero-budget"), (2, 3000, 12, "dead-es"),
+                   (2, 4100, 5, "negative-cost"))
+HIER_SHARDS = (1, 2, 4, 8)
+
+
+def mesh_spec(scenario: str, seeds, rounds: int, shard=None):
+    from repro_torch import api
+    return api.ExperimentSpec(
+        policy=api.PolicySpec("cocs"),
+        env=api.EnvSpec(scenario, true_p="analytic"),
+        train=api.TrainSpec(batch_size=16),
+        eval=api.EvalSpec(eval_every=MESH_EVERY), horizon=rounds,
+        seeds=tuple(seeds), shard=shard)
+
+
+def preset_inputs(dev, preset: str, s: int):
+    """values, costs, budgets, eligible at a preset's full width: the
+    env's round-0 costs and eligibility (seeds 0 .. s-1), uniform values
+    (COCS's scores once explored), the preset's budget an ES."""
+    import torch
+    from repro_torch.sim import spec as simspec
+    from repro_torch.sim.core import init_statics, round_batch
+    env = simspec.make(preset, true_p="analytic")
+    seed_t = torch.arange(s, device=dev)
+    statics = init_statics(env.spec, seed_t)
+    _, rd = round_batch(env.spec, seed_t, statics, statics.pos0, 0)
+    gen = torch.Generator(device=dev).manual_seed(s)
+    v = torch.rand(rd.eligible.shape, generator=gen, device=dev)
+    b = torch.full((s, env.cfg.num_edge_servers), env.cfg.budget,
+                   device=dev)
+    return v, rd.costs.contiguous(), b, rd.eligible.contiguous()
+
+
+def tile_agree(v, c, b, e, tile: int, what: str):
+    """The tile grid and the segment walk against their plain versions,
+    bitwise; returns (density, flat, assign, remaining, plain walk s,
+    plain walk's host syncs)."""
+    import torch
+    from repro_torch.kernels.budgeted_topk import kernel as K
+    from repro_torch.kernels.budgeted_topk import ref
+    m = v.shape[-1]
+    d, f = K.density_sort_tiles_kernel(v, c, e, tile)
+    rd, ri = ref.density_sort_ref(v, c, e, tile)
+    if not (torch.equal(d.view(torch.int32), rd.view(torch.int32))
+            and torch.equal(f, ri)):
+        fail(f"density_sort_tiles not bitwise at {what}")
+    del rd, ri
+    a, r = K.segment_walk_kernel(d, f, c, b, m)
+    syncs = ref.WALK_SYNCS["greedy_walk"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pa, pr = ref.greedy_walk(ref.build_segments(v, c, e, tile), b,
+                             num_es=m, num_clients=v.shape[1])
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if not (torch.equal(a, pa)
+            and torch.equal(r.view(torch.int32), pr.view(torch.int32))):
+        fail(f"segment_walk not bitwise at {what}")
+    return d, f, a, r, plain_s, ref.WALK_SYNCS["greedy_walk"] - syncs
+
+
+def check_tile_grid(dev):
+    """B2's tile grid (``density_sort_tiles``) and P2's walk over its
+    segments (``segment_walk``) against their plain versions, bitwise,
+    at metropolis-100k's and metropolis-1m's widths and on edge cases;
+    timed at both widths. Returns the two kernel rows (at 100k) and the
+    numbers of both widths."""
+    import torch
+    from repro_torch.kernels.budgeted_topk import kernel as K
+    from repro_torch.kernels.budgeted_topk.ref import pair_density
+    for s, n, m, kind in TILE_EDGE_CASES:
+        v, c, b, e = topk_inputs(dev, s, n, m, 40, kind if kind in (
+            "ties", "ineligible", "negative-cost") else "random")
+        if kind == "zero-budget":
+            b.zero_()
+        elif kind == "dead-es":
+            b[:, 0] = 0.1                  # below every cost
+        _, _, a, _, _, _ = tile_agree(v, c, b, e, K.tile_for(m),
+                                      f"{(s, n, m)} {kind}")
+        if kind in ("zero-budget", "ineligible") and (a >= 0).any():
+            fail(f"segment_walk picked at {kind}")
+        if kind == "dead-es" and (a == 0).any():
+            fail("segment_walk assigned to an ES no client can afford")
+    print(f"  density_sort_tiles and segment_walk bitwise on "
+          f"{len(TILE_EDGE_CASES)} edge cases: "
+          f"{[c[3] for c in TILE_EDGE_CASES]}")
+    out, rows = {}, None
+    for preset, s in (("metropolis-100k", 2), ("metropolis-1m", 1)):
+        v, c, b, e = preset_inputs(dev, preset, s)
+        _, n, m = v.shape
+        tile = K.tile_for(m)
+        d, f, a, r, plain_walk_s, plain_syncs = tile_agree(
+            v, c, b, e, tile, preset)
+        sort_call = lambda: K.density_sort_tiles_kernel(v, c, e, tile)
+        walk_call = lambda: K.segment_walk_kernel(d, f, c, b, m)
+        iters = 5 if n > 200_000 else 10
+        a_ms, a_warm = device_ms(sort_call, iters), device_ms(
+            sort_call, iters, cold=False)
+        a_wall = cuda_ms(sort_call, iters, 1)
+        b_ms, b_warm = device_ms(walk_call, iters), device_ms(
+            walk_call, iters, cold=False)
+        b_wall = cuda_ms(walk_call, iters, 1)
+        from repro_torch.kernels.budgeted_topk.ref import density_sort_ref
+        a_plain = cuda_ms(lambda: density_sort_ref(v, c, e, tile), 2, 1)
+        # the library yardstick: one torch.sort of the same rows by the
+        # composite (density image, flat + 1) key
+        nt, p = K.tile_shape(n, m, tile)
+        dens = pair_density(v, c, e) + 0.0
+        dens = torch.cat([dens, dens.new_full((s, nt * tile - n, m),
+                                              -torch.inf)], 1)
+        bits = dens.reshape(s, nt, tile * m).view(torch.int32).to(
+            torch.int64)
+        comp = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits) * (1 << 32) \
+            + torch.arange(1, nt * tile * m + 1, device=dev).view(
+                1, nt, tile * m)
+        if p > tile * m:
+            comp = torch.cat([comp, comp.new_full(
+                (s, nt, p - tile * m), -(1 << 62))], -1)
+        del dens, bits
+        lib_ms = device_ms(lambda: torch.sort(comp, dim=-1,
+                                              descending=True), iters)
+        del comp
+        picks = int((a >= 0).sum())
+        kept = int((d > 0).sum())
+        a_bytes = 5 * s * n * m + 4 * s * n + 8 * s * nt * p
+        b_bytes = 8 * kept + 4 * min(kept, s * n) + 8 * s * m + 4 * s * n
+        a_bnd, a_by = bound_ms(a_bytes, s * n * m)
+        b_bnd, b_by = bound_ms(b_bytes)
+        out[preset] = dict(
+            shape=[s, n, m], tile=tile, segments=nt, row=p, picks=picks,
+            positive_pairs=kept, sort_us=a_ms * 1e3, sort_warm_us=a_warm * 1e3,
+            sort_call_us=a_wall * 1e3, sort_plain_us=a_plain * 1e3,
+            torch_sort_us=lib_ms * 1e3, sort_bound_us=a_bnd * 1e3,
+            walk_us=b_ms * 1e3, walk_warm_us=b_warm * 1e3,
+            walk_call_us=b_wall * 1e3, walk_plain_us=plain_walk_s * 1e6,
+            walk_plain_syncs=plain_syncs, walk_bound_us=b_bnd * 1e3,
+            walk_us_a_pick=b_ms * 1e3 / max(picks, 1),
+            walk_smem=K.walk_smem(n, m, nt))
+        print(f"  {preset} {[s, n, m]}, tile {tile}: {nt} segments of {p}; "
+              f"{kept} pairs of density > 0, {picks} picks")
+        print(f"    density_sort_tiles {a_ms * 1e3:.2f} us (L2 flushed), "
+              f"{a_warm * 1e3:.2f} warm, {a_wall * 1e3:.2f} a call; plain "
+              f"{a_plain * 1e3:.2f} us; torch.sort of the rows "
+              f"{lib_ms * 1e3:.2f} us; bound {a_bnd * 1e3:.3f} us ({a_by})")
+        print(f"    segment_walk {b_ms * 1e3:.2f} us (L2 flushed), "
+              f"{b_warm * 1e3:.2f} warm, {b_wall * 1e3:.2f} a call, "
+              f"{b_ms * 1e3 / max(picks, 1):.3f} us a pick; plain walk "
+              f"{plain_walk_s * 1e6:.2f} us with {plain_syncs} host syncs; "
+              f"bound {b_bnd * 1e3:.3f} us ({b_by}); shared memory "
+              f"{K.walk_smem(n, m, nt)} B")
+        if rows is None:
+            common_kw = dict(route="cuda", max_abs_err=0.0, shape=[s, n, m])
+            rows = [dict(name="density_sort_tiles",
+                         source="src/repro_torch/csrc/budgeted_topk.cu",
+                         replaces="src/repro/kernels/budgeted_topk/"
+                         "kernel.py:96",
+                         ms=a_ms, plain_ms=a_plain, bound_ms=a_bnd,
+                         bound_by=a_by, library_ms=lib_ms, wall_ms=a_wall,
+                         warm_ms=a_warm, **common_kw),
+                    dict(name="segment_walk",
+                         source="src/repro_torch/csrc/segment_walk.cu",
+                         replaces="none: not a TPU kernel (the reference's "
+                         "XLA while_loop, src/repro/kernels/budgeted_topk/"
+                         "ops.py:170)",
+                         ms=b_ms, plain_ms=plain_walk_s * 1e3,
+                         bound_ms=b_bnd, bound_by=b_by, library_ms=None,
+                         wall_ms=b_wall, warm_ms=b_warm, **common_kw)]
+        del v, c, b, e, d, f, a, r
+        torch.cuda.empty_cache()
+    return rows, out
+
+
+def hier_on_card(dev):
+    """The single-process emulation of the sharded walk on the card, at
+    (1000, 12) and shards 1, 2, 4, 8: bitwise the dense kernels' P2
+    (B2's one pass) and P3 (keys, then P3's walk)."""
+    import torch
+    from repro_torch.mesh import hier_flgreedy_assign, hier_greedy_assign
+    from repro_torch.policies.solvers import flgreedy_assign, greedy_assign
+    v, c, b, e = topk_inputs(dev, 2, 1000, 12, 3, "main")
+    dense, dense_fl = greedy_assign(v, c, b, e), flgreedy_assign(v, c, b, e)
+    for shards in HIER_SHARDS:
+        if not torch.equal(hier_greedy_assign(v, c, b, e, shards), dense):
+            fail(f"hier_greedy_assign at {shards} shards")
+        if not torch.equal(hier_flgreedy_assign(v, c, b, e, shards),
+                           dense_fl):
+            fail(f"hier_flgreedy_assign at {shards} shards")
+    print(f"  hier_greedy_assign and hier_flgreedy_assign at (2, 1000, 12), "
+          f"shards {HIER_SHARDS}: bitwise the dense kernels' "
+          f"({int((dense >= 0).sum())} and {int((dense_fl >= 0).sum())} "
+          f"picks)")
+
+
+def mesh_run_checks(res, env, dev, seeds, what):
+    import numpy as np
+    worst = spend_within_budget(env, dev, seeds, np.asarray(res.selections),
+                                what)
+    if not np.isfinite(np.asarray(res.accuracy)).all():
+        fail(f"{what}: non-finite accuracy")
+    if not np.asarray(res.participants).max() > 0:
+        fail(f"{what}: no participant in any round")
+    return worst
+
+
+def sharded_cohort(dev):
+    """metropolis-100k at full width (2 seeds, 4 rounds), dense on the
+    card and sharded over 4 ranks on cuda:0 (gloo) as 4x1 and 2x2, every
+    field bitwise the dense run; metropolis-1m dense (1 seed, 2 rounds);
+    the launches of the tile grid and the segment walk in the dense
+    100k run are the kernel rows' launches."""
+    import tempfile
+    import threading
+    import numpy as np
+    import torch
+    import repro_torch
+    from repro_torch import api
+    from repro_torch.data.federated import FederatedDataset
+    from repro_torch.kernels import common
+    from repro_torch.kernels.budgeted_topk.ref import WALK_SYNCS
+    from repro_torch.launch.mesh import run_specs, spawn_local
+    from repro_torch.sim import spec as simspec
+
+    out = {}
+    data_kw = dict(num_clients=100_000, kind="tiny", samples_per_client=20,
+                   seed=0)
+    t0 = time.perf_counter()
+    data = FederatedDataset.synthetic(**data_kw)
+    out["data_100k_s"] = time.perf_counter() - t0
+    spec = mesh_spec("metropolis-100k", MESH_SEEDS, MESH_ROUNDS)
+    env = simspec.make("metropolis-100k", true_p="analytic")
+    common.reset_launches()
+    for k in WALK_SYNCS:
+        WALK_SYNCS[k] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    dense = repro_torch.run(spec, data=data, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(common.LAUNCHES)
+    if any(WALK_SYNCS.values()):
+        fail(f"metropolis-100k dense: a walk synced with the host "
+             f"{WALK_SYNCS}")
+    want = {"context_pairwise": MESH_ROUNDS, "density_sort_tiles":
+            MESH_ROUNDS, "segment_walk": MESH_ROUNDS, "budgeted_topk": 0,
+            "masked_aggregate": MESH_ROUNDS}
+    for k, v in want.items():
+        if launches[k] != v:
+            fail(f"metropolis-100k dense: {k} launched {launches[k]} "
+                 f"times in {MESH_ROUNDS} rounds, expected {v}")
+    worst = mesh_run_checks(dense, env, dev, MESH_SEEDS, "metropolis-100k")
+    out["dense_100k"] = dict(
+        wall_s=wall, rounds_per_s=MESH_ROUNDS / wall,
+        peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+        launches={k: v for k, v in launches.items() if v},
+        max_spend=worst, accuracy=np.asarray(dense.accuracy)[:, -1].tolist(),
+        picks_a_round=float((np.asarray(dense.selections) >= 0).sum()
+                            / (len(MESH_SEEDS) * MESH_ROUNDS)))
+    print(f"  metropolis-100k dense on the card: {wall:.3f} s, "
+          f"{MESH_ROUNDS / wall:.3f} rounds/s, peak "
+          f"{out['dense_100k']['peak_gb']:.3f} GB; launches "
+          f"{out['dense_100k']['launches']}; walk host syncs 0; max ES "
+          f"spend {worst:.6f} <= {env.cfg.budget}; accuracy "
+          f"{out['dense_100k']['accuracy']}; "
+          f"{out['dense_100k']['picks_a_round']:.1f} picks a seed a round")
+    fields = ("selections", "utilities", "participants", "explored",
+              "accuracy", "loss")
+    out["sharded_100k"] = {}
+    # the metropolis-1m run's tiny data (~35 s of host numpy) is made
+    # while the ranks run, when this process only waits on them
+    made = {}
+
+    def make_1m():
+        t0 = time.perf_counter()
+        try:
+            made["data"] = FederatedDataset.synthetic(
+                1_000_000, kind="tiny", samples_per_client=20, seed=0)
+        finally:
+            made["s"] = time.perf_counter() - t0
+
+    maker = threading.Thread(target=make_1m, daemon=True)
+    maker.start()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        for cl, sd in MESH_LAYOUTS:
+            sspec = mesh_spec("metropolis-100k", MESH_SEEDS, MESH_ROUNDS,
+                              api.ShardSpec(clients=cl, seeds=sd))
+            t0 = time.perf_counter()
+            ranks = spawn_local(run_specs, cl * sd, backend="gloo",
+                                device=dev, init_file=os.path.join(
+                                    tmp, f"rdv{cl}{sd}"),
+                                args=([sspec.to_json()], data_kw),
+                                timeout=MESH_TIMEOUT)
+            spawn_s = time.perf_counter() - t0
+            for r, rows in enumerate(ranks):
+                row = rows[0]
+                for f in fields:
+                    if not np.array_equal(np.asarray(getattr(dense, f)),
+                                          row[f]):
+                        fail(f"metropolis-100k {cl}x{sd}: rank {r} {f} "
+                             "differs from the dense card run")
+            r0 = ranks[0][0]
+            per_round = {k: v / MESH_ROUNDS
+                         for k, v in r0["collectives"].items()}
+            out["sharded_100k"][f"{cl}x{sd}"] = dict(
+                backend=r0["backend"], spawn_s=spawn_s,
+                run_s=[rk[0]["seconds"] for rk in ranks],
+                rounds_per_s=MESH_ROUNDS / max(rk[0]["seconds"]
+                                               for rk in ranks),
+                peak_gb=[rk[0]["peak_bytes"] / 1e9 for rk in ranks],
+                walk_syncs_a_round=r0["walk_syncs"] / MESH_ROUNDS,
+                collectives_a_round=per_round,
+                launches=[{k: v for k, v in rk[0]["launches"].items() if v}
+                          for rk in ranks])
+            o = out["sharded_100k"][f"{cl}x{sd}"]
+            print(f"  metropolis-100k {cl} client x {sd} seed shards, "
+                  f"{cl * sd} ranks on {dev} over {o['backend']}: every "
+                  f"field bitwise the dense card run on every rank; "
+                  f"{o['rounds_per_s']:.3f} rounds/s (ranks' runs "
+                  f"{[round(x, 3) for x in o['run_s']]} s, spawn and all "
+                  f"{spawn_s:.1f} s); peak GB a rank "
+                  f"{[round(x, 3) for x in o['peak_gb']]}; rank 0's walk "
+                  f"host syncs {o['walk_syncs_a_round']:.1f} and "
+                  f"collectives {per_round} a round; rank 0's launches "
+                  f"{o['launches'][0]}")
+    del data
+    maker.join()
+    if "data" not in made:
+        fail("metropolis-1m: the tiny data could not be made")
+    data1m, data_s = made["data"], made["s"]
+    spec1m = mesh_spec("metropolis-1m", (0,), MESH_1M_ROUNDS)
+    env1m = simspec.make("metropolis-1m", true_p="analytic")
+    common.reset_launches()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res = repro_torch.run(spec1m, data=data1m, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in common.LAUNCHES.items() if v}
+    if any(WALK_SYNCS.values()):
+        fail(f"metropolis-1m dense: a walk synced with the host "
+             f"{WALK_SYNCS}")
+    for k in ("density_sort_tiles", "segment_walk", "context_pairwise"):
+        if launches.get(k) != MESH_1M_ROUNDS:
+            fail(f"metropolis-1m: {k} launched {launches.get(k)} times")
+    del data1m
+    worst = mesh_run_checks(res, env1m, dev, (0,), "metropolis-1m")
+    out["dense_1m"] = dict(
+        data_s=data_s, wall_s=wall, rounds_per_s=MESH_1M_ROUNDS / wall,
+        peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+        launches=launches, max_spend=worst,
+        accuracy=np.asarray(res.accuracy)[:, -1].tolist(),
+        participants=np.asarray(res.participants).tolist())
+    print(f"  metropolis-1m dense on the card, 1 seed, {MESH_1M_ROUNDS} "
+          f"rounds: {wall:.3f} s ({MESH_1M_ROUNDS / wall:.3f} rounds/s; its "
+          f"tiny data took {data_s:.1f} s on the host while the ranks "
+          f"ran), peak "
+          f"{out['dense_1m']['peak_gb']:.3f} GB; launches {launches}; max "
+          f"ES spend {worst:.6f} <= {env1m.cfg.budget}; accuracy "
+          f"{out['dense_1m']['accuracy']}; participants "
+          f"{out['dense_1m']['participants']}")
+    return out, dict(launches=out["dense_100k"]["launches"])
+
+
+def mesh_phase(dev):
+    """Phase 20."""
+    t0 = time.perf_counter()
+    rows, tiles = check_tile_grid(dev)
+    hier_on_card(dev)
+    runs, main = sharded_cohort(dev)
+    print(f"  phase 20 in {time.perf_counter() - t0:.1f} s")
+    return rows, dict(tiles=tiles, **runs,
+                      phase_s=time.perf_counter() - t0), main["launches"]
+
+
 def to_device(tree, dev):
     if isinstance(tree, dict):
         return {k: to_device(v, dev) for k, v in tree.items()}
@@ -3943,6 +4353,14 @@ def main() -> int:
           "the CPU against CUDA, resume, a metropolis-1k suite, the CLIs)")
     trials = trials_phase(dev)
 
+    print("phase 20: the sharded cohort (B2's tile grid and the segment "
+          "walk at metropolis-100k and -1m, metropolis-100k dense and on "
+          "4x1 and 2x2 ranks, metropolis-1m dense)")
+    mesh_rows, mesh, mesh_launch = mesh_phase(dev)
+    rows += mesh_rows
+    for r in mesh_rows:
+        print_row(r)
+
     # each kernel's launches on its own main path: B1-B3 and Random's
     # scan the HFL runs of phase 4 (three policies), P3's walk the gated
     # non-convex run, B4 the qwen2 serve (the shape its row is timed at;
@@ -3955,7 +4373,9 @@ def main() -> int:
                   nonconvex["gated"]["launches"]["flgreedy_walk"],
               "flash_attention": qlaunch["flash_attention"],
               "rwkv6_scan": rlaunch["rwkv6_scan"],
-              "moe_router": mlaunch["moe_router"]}
+              "moe_router": mlaunch["moe_router"],
+              "density_sort_tiles": mesh_launch["density_sort_tiles"],
+              "segment_walk": mesh_launch["segment_walk"]}
     for k, v in counts.items():
         if v <= 0:
             fail(f"{k} was launched no time on its main path")
@@ -3976,7 +4396,8 @@ def main() -> int:
                       hfl_cpu_vs_cuda, "nonconvex": nonconvex,
                       "bandit": bandit, "panels": panels,
                       "faults": faults, "resilience": resilience,
-                      "trials": trials, "serve": serve_rows}))
+                      "trials": trials, "mesh": mesh,
+                      "serve": serve_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

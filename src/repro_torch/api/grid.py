@@ -42,8 +42,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.api.run import (RunResult, _check_device, _refuse,
-                                 build_env, build_policy, run, select_tier)
+from repro_torch.api.run import (RunResult, _check_device, build_env,
+                                 build_policy, run, select_tier)
 from repro_torch.api.spec import GRID_AXES, ExperimentGrid, ExperimentSpec
 from repro_torch.envs import cached_rollout
 
@@ -94,13 +94,14 @@ def _group_key(cell: ExperimentSpec) -> ExperimentSpec:
 
 def run_grid(grid: ExperimentGrid, *, data=None, device=None) -> GridResult:
     """Every cell of ``grid``: batched groups where the cells allow it,
-    each other cell through ``run``. Every cell's refusals are checked
-    before any work."""
+    each other cell through ``run`` (which raises a cell's refusals
+    before its work). A batched group runs dense, as the reference's
+    does whatever its ``ShardSpec``; its fused tiers split their
+    elements over the process group's ranks by ``shard_seeds``, as
+    ``sweep_experiments`` splits seeds."""
     from repro_torch.kernels.common import resolve_device
 
     cells = grid.expand()
-    for cell in cells:
-        _refuse(cell)
     dev = resolve_device(device)
     for cell in cells:
         _check_device(cell, dev)
@@ -267,8 +268,9 @@ def _fused_grid(key: ExperimentSpec, policy, env, device: bool, seeds,
     from its seed's model, sampler key and env. Returns (per-round outs
     with (B, ...) arrays, eval dict)."""
     from repro_torch.experiment.sweep import (_block_bounds,
+                                              gather_objects,
                                               prepare_training, run_fused,
-                                              run_fused_device)
+                                              run_fused_device, seed_split)
     from repro_torch.policies.base import (round_from_arrays,
                                            rounds_to_scan_axes)
     from repro_torch.policies.engine import full_budgets
@@ -284,27 +286,39 @@ def _fused_grid(key: ExperimentSpec, policy, env, device: bool, seeds,
         return a.repeat((n_cells,) + (1,) * (a.dim() - 1))
 
     # each cell repeats its seeds' models, sampler keys and env seeds
-    # (the env seeds draw the update corruption)
+    # (the env seeds draw the update corruption); with ``shard_seeds``
+    # over a process group each rank runs its block of the elements
+    b_total = len(pol_seeds_b)
+    split = seed_split(b_total, key.shard_seeds)
+    rank, k = split if split is not None else (0, 1)
+    mine = slice(rank * b_total // k, (rank + 1) * b_total // k)
     setup = setup._replace(
-        edge_seed={k: tile(v) for k, v in setup.edge_seed.items()},
-        base_keys=tile(setup.base_keys), env_seeds=tile(setup.env_seeds))
+        edge_seed={n: tile(v)[mine] for n, v in setup.edge_seed.items()},
+        base_keys=tile(setup.base_keys)[mine],
+        env_seeds=tile(setup.env_seeds)[mine])
     ends = _block_bounds(key.horizon, key.eval.eval_every)
-    budgets = full_budgets(policy, budgets_b, dev)
-    pstate = policy.init(len(pol_seeds_b), dev, pol_seeds_b)
+    budgets = full_budgets(policy, budgets_b, dev)[mine]
+    pstate = policy.init(len(pol_seeds_b[mine]), dev, pol_seeds_b[mine])
     if device:
         seed_t = setup.env_seeds
         out = run_fused_device(
             policy, setup, env.spec, seed_t, init_statics(env.spec, seed_t),
             pstate, ends, train.slots_per_es, budgets,
-            torch.as_tensor(deadlines_b, device=dev))
+            torch.as_tensor(deadlines_b[mine], device=dev))
     else:
         batch = _host_grid_batch(env, seeds, key.horizon,
                                  deadlines_b[::len(seeds)])
+        batch = type(batch)(*(f[mine] for f in batch))
         out = run_fused(policy, setup,
                         round_from_arrays(rounds_to_scan_axes(batch), dev),
                         pstate, ends, train.slots_per_es, budgets)
-    return ({k: out[k] for k in ("selections", "utilities", "participants",
-                                 "explored")},
+    fields = ("selections", "utilities", "participants", "explored",
+              "accuracy", "loss")
+    out = {f: out[f] for f in fields}
+    if split is not None:
+        parts = gather_objects(out)
+        out = {f: np.concatenate([p[f] for p in parts]) for f in fields}
+    return ({f: out[f] for f in fields[:4]},
             {"eval_rounds": np.asarray(ends), "accuracy": out["accuracy"],
              "loss": out["loss"]})
 

@@ -39,13 +39,24 @@ interval, a bitwise resume), ``EvalSpec.health`` ("record" or "halt" on
 a non-finite carry) and ``ObsSpec`` (``telemetry`` taps into
 ``RunResult.telemetry``, a ``trace`` JSONL span log with its
 ``perfetto`` export, a ``torch.profiler`` trace into ``jax_profiler``).
-Tiers 1 and 2 run the tracer too and report ``telemetry=None``. What
-the port does not have yet raises ``NotImplementedError`` naming its
-ROADMAP item, before any work, and never runs a substitute: a sharded
-layout (``ShardSpec`` or ``shard_seeds``) and the
-``metropolis-100k``/``-1m`` cohorts, queue A item 4.
+Tiers 1 and 2 run the tracer too and report ``telemetry=None``.
 
-``device=None`` runs on CUDA and raises without a CUDA device; pass
+A ``ShardSpec`` of more than one shard runs tier 4 on the client-sharded
+cohort engine (``repro_torch.mesh.sweep_sharded``): every rank of a
+``torch.distributed`` group of ``clients * seeds`` ranks calls ``run``
+and gets the same full ``RunResult``; without such a group it raises
+``ValueError`` saying how to start the ranks. Any other tier raises the
+reference's ``ValueError``, and what the reference's sharded engine
+refuses (corruption faults, a policy without ``pair_values``, a robust
+aggregator, an MoE model, an N or S the mesh does not divide) raises
+alike, all before any work; like the reference's sharded path it
+ignores ``checkpoint_dir``, ``resume`` and ``health``. ``shard_seeds``
+splits the fused tiers' seeds over the group's ranks where they divide,
+and warns and runs unsharded where not (one process included). Only
+rank 0 of a group writes a trace or a profile.
+
+``device=None`` runs on CUDA (rank r of a process group on
+``cuda:(r % device_count)``) and raises without a CUDA device; pass
 ``device="cpu"`` for the plain PyTorch path. On CUDA every kernel
 launches, so ``use_kernel=False`` (the reference's plain route) is
 refused there; on the CPU the plain versions run whatever it says. A
@@ -59,6 +70,7 @@ from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.api.spec import (EnvSpec, ExperimentGrid, ExperimentSpec,
                                   PolicySpec)
@@ -135,8 +147,6 @@ def resolve_config(env_spec: EnvSpec):
         cfg = get_config(env_spec.config)
     elif scen in PRESETS:
         cfg = PRESETS[scen][0]
-    elif scen in MESH_PRESETS:
-        raise _not_ported(f"the {scen!r} cohort", 4)
     else:
         cfg = MNIST_CONVEX
     if env_spec.overrides:
@@ -154,19 +164,11 @@ def _env_backend(env_spec: EnvSpec) -> str:
     return "device" if use_device else "host"
 
 
-def _check_env(env_spec: EnvSpec) -> None:
-    """A mesh cohort raises."""
-    scen = env_spec.scenario.lower()
-    if scen in MESH_PRESETS:
-        raise _not_ported(f"the {scen!r} cohort", 4)
-
-
 def build_env(env_spec: EnvSpec):
     """EnvSpec -> ``envs.HFLEnv`` (host) | ``sim.spec.DeviceEnv``."""
     from repro_torch import envs
     from repro_torch.sim import spec as simspec
 
-    _check_env(env_spec)
     scen = env_spec.scenario.lower()
     cfg = resolve_config(env_spec)
     if _env_backend(env_spec) == "device":
@@ -191,21 +193,49 @@ def build_policy(policy_spec: PolicySpec, cfg, horizon: int):
 
 def select_tier(spec: ExperimentSpec, policy, env) -> int:
     from repro_torch.sim.spec import DeviceEnv
+    return _tier(spec, policy, isinstance(env, DeviceEnv))
+
+
+def _tier(spec: ExperimentSpec, policy, device_env: bool) -> int:
     if spec.train is None:
         return 1
     if not getattr(policy, "tensor_capable", False):
         return 2
-    return 4 if isinstance(env, DeviceEnv) else 3
+    return 4 if device_env else 3
 
 
-def _refuse(spec: ExperimentSpec) -> None:
-    """Every part of a spec the port cannot run raises here, before any
-    work."""
+def sharded(spec: ExperimentSpec) -> bool:
+    """True when the spec's ``ShardSpec`` splits an axis."""
     shard = spec.shard
-    if (shard is not None and (shard.clients > 1 or shard.seeds > 1)) \
-            or spec.shard_seeds:
-        raise _not_ported("the sharded cohort (ShardSpec, shard_seeds)", 4)
-    _check_env(spec.env)
+    return shard is not None and (shard.clients > 1 or shard.seeds > 1)
+
+
+def check_shard(spec: ExperimentSpec) -> None:
+    """A sharded spec's refusals, from the spec alone (no env is built):
+    the reference's ``ValueError`` off tier 4, what its sharded engine
+    refuses (``mesh.runner.check_sharded``), then a process group of
+    another size than the mesh (``mesh.topology.check_ranks``)."""
+    if not sharded(spec):
+        return
+    from repro_torch.mesh.runner import check_sharded
+
+    shard = spec.shard
+    cfg = resolve_config(spec.env)
+    policy = build_policy(spec.policy, cfg, spec.horizon)
+    device_env = _env_backend(spec.env) == "device"
+    tier = _tier(spec, policy, device_env)
+    if tier != 4:
+        raise ValueError(
+            f"ShardSpec(clients={shard.clients}, seeds={shard.seeds}) "
+            "needs the device-env fused tier (tier 4): a device "
+            "backend env and a tensor policy; this spec resolved to "
+            f"tier {tier}")
+    check_sharded(policy, shard, device_env=device_env,
+                  num_clients=cfg.num_clients, n_seeds=len(spec.seeds),
+                  faults=spec.env.faults, model_kind=spec.train.model_kind,
+                  aggregator=spec.train.aggregator)
+    from repro_torch.mesh.topology import check_ranks
+    check_ranks(shard.seeds, shard.clients)
 
 
 # -- the facade --------------------------------------------------------------
@@ -236,15 +266,21 @@ def run(spec, *, data=None, device=None):
                         f"ExperimentGrid, got {type(spec).__name__}")
     from repro_torch.kernels.common import resolve_device
 
-    _refuse(spec)
-    dev = resolve_device(device)
+    from repro_torch.launch.mesh import rank_device
+
+    check_shard(spec)
+    dev = resolve_device(device) if device is not None else rank_device()
     _check_device(spec, dev)
-    with obs_trace.run_tracing(spec.obs):
+    obs = spec.obs
+    if _rank() != 0:
+        # one trace and one profile a group: rank 0's
+        obs = dataclasses.replace(obs, trace=None, perfetto=None,
+                                  jax_profiler=None)
+    with obs_trace.run_tracing(obs):
         return _run_spec(spec, data, dev)
 
 
 def _run_spec(spec: ExperimentSpec, data, dev) -> RunResult:
-    from repro_torch.experiment.sweep import sweep_experiments
     from repro_torch.sim.draws import SCHEDULE_ID
     from repro_torch.sim.spec import DeviceEnv
 
@@ -266,8 +302,56 @@ def _run_spec(spec: ExperimentSpec, data, dev) -> RunResult:
                               backend, dev)
         return RunResult(**common, **out)
     name = spec.policy.name
-    with obs_trace.span("run.dispatch", tier=tier, policy=name):
-        res = sweep_experiments(
+    if sharded(spec):
+        res = _run_sharded(spec, policy, env, seeds, data, dev)
+    else:
+        with obs_trace.span("run.dispatch", tier=tier, policy=name):
+            res = _sweep(spec, policy, env, seeds, data, dev)
+    telemetry = res.telemetry.get(name)
+    if telemetry is not None and obs_trace.active() is not None \
+            and _rank() == 0:
+        _emit_telemetry_event(name, telemetry)
+    return RunResult(**common, selections=res.selections[name],
+                     utilities=res.utilities[name],
+                     participants=res.participants[name],
+                     explored=res.explored[name],
+                     eval_rounds=np.asarray(res.eval_rounds),
+                     accuracy=res.accuracy[name], loss=res.loss[name],
+                     health=res.health.get(name), telemetry=telemetry)
+
+
+def _rank() -> int:
+    """This process's rank in the default process group (0 without)."""
+    from repro_torch.launch.mesh import world_size
+    return torch.distributed.get_rank() if world_size() > 1 else 0
+
+
+def _run_sharded(spec: ExperimentSpec, policy, env, seeds, data, dev):
+    """Tier 4 on the cohort mesh; like the reference's sharded path it
+    takes no checkpoints, resume or health guard."""
+    from repro_torch.mesh.runner import sweep_sharded
+
+    shard, name = spec.shard, spec.policy.name
+    with obs_trace.span("run.dispatch", tier=4, policy=name,
+                        mesh=f"{shard.seeds}x{shard.clients}"):
+        return sweep_sharded(
+            {name: policy}, env, seeds, spec.horizon, shard=shard,
+            model_kind=spec.train.model_kind,
+            batch_size=spec.train.batch_size,
+            batches_per_epoch=spec.train.batches_per_epoch,
+            eval_every=spec.eval.eval_every, data=data,
+            slots_per_es=spec.train.slots_per_es,
+            policy_seed_offset=spec.policy.seed_offset,
+            aggregator=spec.train.aggregator,
+            trim_frac=spec.train.trim_frac,
+            telemetry=spec.obs.telemetry, device=dev)
+
+
+def _sweep(spec: ExperimentSpec, policy, env, seeds, data, dev):
+    from repro_torch.experiment.sweep import sweep_experiments
+
+    name = spec.policy.name
+    return sweep_experiments(
             {name: policy}, env, seeds, spec.horizon,
             model_kind=spec.train.model_kind,
             batch_size=spec.train.batch_size,
@@ -279,17 +363,8 @@ def _run_spec(spec: ExperimentSpec, data, dev) -> RunResult:
             trim_frac=spec.train.trim_frac,
             checkpoint_dir=spec.eval.checkpoint_dir,
             resume=spec.eval.resume, health=spec.eval.health,
-            telemetry=spec.obs.telemetry, device=dev)
-    telemetry = res.telemetry.get(name)
-    if telemetry is not None and obs_trace.active() is not None:
-        _emit_telemetry_event(name, telemetry)
-    return RunResult(**common, selections=res.selections[name],
-                     utilities=res.utilities[name],
-                     participants=res.participants[name],
-                     explored=res.explored[name],
-                     eval_rounds=np.asarray(res.eval_rounds),
-                     accuracy=res.accuracy[name], loss=res.loss[name],
-                     health=res.health.get(name), telemetry=telemetry)
+            telemetry=spec.obs.telemetry, shard_seeds=spec.shard_seeds,
+            device=dev)
 
 
 def _emit_telemetry_event(name: str, telemetry: dict) -> None:
@@ -342,4 +417,5 @@ def _run_bandit(policy, env, seeds: Sequence[int], pol_seeds: Sequence[int],
 
 
 __all__ = ["RunResult", "build_env", "build_policy", "cached_rollout",
-           "resolve_config", "run", "select_tier"]
+           "check_shard", "resolve_config", "run", "select_tier",
+           "sharded"]

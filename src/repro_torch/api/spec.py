@@ -180,10 +180,11 @@ class TrainSpec:
 
 @dataclass(frozen=True)
 class ShardSpec:
-    """Cohort-mesh layout of the reference's client-sharded tier-4
-    engine: how many ways to split the client axis and the seed axis
-    over the devices. ``clients = seeds = 1`` leaves the spec inert; the
-    sharded engine is not ported yet (ROADMAP queue A item 4).
+    """Cohort-mesh layout of the client-sharded tier-4 engine
+    (``repro_torch.mesh``): how many ways to split the client axis and
+    the seed axis over the ranks of a ``torch.distributed`` group of
+    ``clients * seeds`` ranks. ``clients = seeds = 1`` leaves the spec
+    inert.
     """
     clients: int = 1
     seeds: int = 1

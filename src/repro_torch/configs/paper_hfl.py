@@ -57,6 +57,25 @@ BURSTY_1K = HFLExperimentConfig(
     budget=8.0,
 )
 
+# metropolis-scale cohorts for the client-sharded cohort engine
+# (``repro_torch.mesh``): 10^5-10^6 clients split over the "clients"
+# ranks. Budgets keep per-ES admissions bounded (the slot capacity, not
+# N, sizes the training tensors), and the client count divides the
+# power-of-two shard counts
+METROPOLIS_100K = HFLExperimentConfig(
+    name="mnist-metropolis-100k",
+    num_clients=100_000,
+    num_edge_servers=32,
+    budget=16.0,
+)
+
+METROPOLIS_1M = HFLExperimentConfig(
+    name="mnist-metropolis-1m",
+    num_clients=1_000_000,
+    num_edge_servers=64,
+    budget=16.0,
+)
+
 # the non-convex setting (Figs. 5-7): the CNN's larger updates and
 # workload, a longer deadline, the sqrt (P3) utility. lr = 0.1 is the
 # reference's; at it the CNN's local SGD diverges on the synthetic data
@@ -77,7 +96,8 @@ CIFAR10_NONCONVEX = HFLExperimentConfig(
 )
 
 CONFIGS = {c.name: c for c in (MNIST_CONVEX, CIFAR10_NONCONVEX,
-                               METROPOLIS_1K, BURSTY_1K)}
+                               METROPOLIS_1K, BURSTY_1K,
+                               METROPOLIS_100K, METROPOLIS_1M)}
 
 
 def get_config(name: str) -> HFLExperimentConfig:

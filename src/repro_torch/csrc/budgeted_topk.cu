@@ -457,6 +457,70 @@ budgeted_topk_kernel(const float* __restrict__ values,
     for (int i = lane; i < m; i += 32) remaining[seed * m + i] = s_rem[i];
 }
 
+// The TPU kernel's own layout, for more than kMaxPairs pairs a seed
+// (density_sort_tiles_launch): one block a (client tile, seed) computes
+// the tile's tile * M densities, -inf where ineligible or past N, and
+// sorts them in shared memory by (density desc, flat index desc) with the
+// sort above. A key is order_key(density) << 32 | (flat + 1); the row's
+// pads past tile * M are (-inf, -1), key order_key(-inf) << 32, which
+// sorts after every real -inf pair, as the plain version's composite key
+// does (ref.density_sort_ref). Bound: each pair read once (values 4 B,
+// eligible 1 B, its client's cost once) and written once as (density,
+// flat), 8 B; a block holds one tile's P <= 16,384 keys (128 KB).
+constexpr u64 kPadKey = (u64)0x007fffffu << 32;   // order_key(-inf), flat -1
+
+template <int E>
+__device__ void write_tile(const u64* keys, int p, float* __restrict__ d,
+                           int* __restrict__ ix) {
+  for (int q = threadIdx.x; q < p; q += kThreads) {
+    const u64 k = keys[phys<E>(q)];
+    const unsigned hi = (unsigned)(k >> 32), lo = (unsigned)k;
+    d[q] = __uint_as_float((hi & 0x80000000u) ? (hi ^ 0x80000000u) : ~hi);
+    ix[q] = (int)lo - 1;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+density_sort_tiles_kernel(const float* __restrict__ values,
+                          const float* __restrict__ costs,
+                          const unsigned char* __restrict__ eligible,
+                          float* __restrict__ d_out, int* __restrict__ i_out,
+                          int n, int m, int tile, int p, int ps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  u64* keys = reinterpret_cast<u64*>(smem);
+  const long long seed = blockIdx.y, ti = blockIdx.x, nt = gridDim.x;
+  const int pairs = tile * m;
+  const long long row0 = ti * tile;
+  for (int q = threadIdx.x; q < ps; q += kThreads) {
+    u64 key = kPadKey;
+    if (q < pairs) {
+      const int r = q / m;
+      const long long row = row0 + r;
+      float d = __uint_as_float(0xff800000u);          // -inf
+      if (row < n) {
+        const long long at = (seed * n + row) * m + (q - r * m);
+        if (eligible[at]) {
+          const float c = costs[seed * n + row];
+          d = values[at] / (c < kEps ? kEps : c);
+        }
+      }
+      key = ((u64)order_key(d) << 32) |
+            (u64)((unsigned)(row0 * m + q) + 1u);
+    }
+    keys[q] = key;
+  }
+  __syncthreads();
+  float* d = d_out + (seed * nt + ti) * p;
+  int* ix = i_out + (seed * nt + ti) * p;
+  if (ps > 8192) {
+    sort_desc<16>(keys, ps, ps);
+    write_tile<16>(keys, p, d, ix);
+  } else {
+    sort_desc<8>(keys, ps, ps);
+    write_tile<8>(keys, p, d, ix);
+  }
+}
+
 size_t key_capacity(int n, int m) {
   size_t cap = kMinSort;
   while (cap < (size_t)n * m) cap <<= 1;
@@ -519,5 +583,35 @@ extern "C" int budgeted_topk_keys_launch(const float* values,
   budgeted_topk_kernel<true><<<s, kThreads, smem, (cudaStream_t)stream>>>(
       values, costs, nullptr, eligible, nullptr, nullptr, keys, counts, n, m,
       (int)key_capacity(n, m));
+  return (int)cudaGetLastError();
+}
+
+// The tile sort: values (S, N, M), costs (S, N), eligible (S, N, M) ->
+// density (S, nt, P) f32 and flat index (S, nt, P) int32, nt = ceil(N /
+// tile), P the next power of two >= tile * M (<= kMaxPairs).
+extern "C" int density_sort_tiles_launch(const float* values,
+                                         const float* costs,
+                                         const unsigned char* eligible,
+                                         float* d_out, int* i_out, int s,
+                                         int n, int m, int tile,
+                                         void* stream) {
+  if (n < 0 || m <= 0 || tile <= 0 || (long long)tile * m > kMaxPairs ||
+      ((long long)n + tile) * m >= 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const int nt = (n + tile - 1) / tile;
+  if (s == 0 || nt == 0) return 0;
+  int p = 1;
+  while (p < tile * m) p <<= 1;
+  const int ps = p < kMinSort ? kMinSort : p;
+  const size_t smem = (size_t)ps * sizeof(u64);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        density_sort_tiles_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  density_sort_tiles_kernel<<<dim3(nt, s), kThreads, smem,
+                              (cudaStream_t)stream>>>(
+      values, costs, eligible, d_out, i_out, n, m, tile, p, ps);
   return (int)cudaGetLastError();
 }

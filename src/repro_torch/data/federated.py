@@ -45,20 +45,28 @@ class FederatedDataset:
         (cached per device)."""
         key = str(torch.device(device or "cpu"))
         if key not in self._stacked:
-            sizes = np.array([len(c.y) for c in self.clients], np.int32)
-            if sizes.min() < 1:
-                raise ValueError("every client needs at least one sample")
-            n, lmax = len(self.clients), int(sizes.max())
-            feat = self.clients[0].x.shape[1:]
-            x = np.zeros((n, lmax) + feat, np.float32)
-            y = np.zeros((n, lmax), np.int32)
-            for c, cd in enumerate(self.clients):
-                x[c, :sizes[c]] = cd.x
-                y[c, :sizes[c]] = cd.y
-            t = lambda a: torch.as_tensor(a, device=device)
-            self._stacked[key] = StackedClients(x=t(x), y=t(y),
-                                                sizes=t(sizes))
+            self._stacked[key] = self.stacked_rows(0, len(self.clients),
+                                                   device)
         return self._stacked[key]
+
+    def stacked_rows(self, lo: int, hi: int, device=None
+                     ) -> StackedClients:
+        """Clients ``lo .. hi`` stacked as ``stacked`` stacks all (the
+        same padded length, the longest shard of all), with ``sizes``
+        the global (N,) vector: a client shard's data, indexed by
+        ``client - lo``, its batch sampler by global client id."""
+        sizes = np.array([len(c.y) for c in self.clients], np.int32)
+        if sizes.min() < 1:
+            raise ValueError("every client needs at least one sample")
+        lmax = int(sizes.max())
+        feat = self.clients[0].x.shape[1:]
+        x = np.zeros((hi - lo, lmax) + feat, np.float32)
+        y = np.zeros((hi - lo, lmax), np.int32)
+        for c in range(lo, hi):
+            x[c - lo, :sizes[c]] = self.clients[c].x
+            y[c - lo, :sizes[c]] = self.clients[c].y
+        t = lambda a: torch.as_tensor(a, device=device)
+        return StackedClients(x=t(x), y=t(y), sizes=t(sizes))
 
     @classmethod
     def synthetic(cls, num_clients: int, kind: str = "mnist",

@@ -117,21 +117,25 @@ def prepare_training(cfg, model_kind: str, batch_size: int,
                      data: Optional[FederatedDataset],
                      seeds: Sequence[int], device,
                      aggregator: str = "mean", trim_frac: float = 0.1,
-                     faults=None) -> TrainingSetup:
+                     faults=None, rows: Optional[tuple] = None
+                     ) -> TrainingSetup:
     """Training state shared by every seed: the synthetic dataset
     (``seed=0``; "mnist" for logreg, "cifar" for the CNN) unless given,
     stacked shards on ``device``, per-seed edge models (logreg at zero,
     the CNN from ``init_cnn(PRNGKey(seed))`` at the data's shape),
     sampler keys ``PRNGKey(seed + 11)``, the round spec with its Eq. 3
     rule, and the env's ``faults`` (their corruption is drawn from the
-    env seeds, ``seeds``)."""
+    env seeds, ``seeds``). ``rows=(lo, hi)`` stacks only those clients'
+    shards (a client shard of the sharded engine; ``sizes`` stays the
+    global (N,) vector)."""
     if model_kind not in MODEL_KINDS:
         raise ValueError(f"unknown model kind {model_kind!r}; the port "
                          f"has {MODEL_KINDS}")
     kind = "cifar" if model_kind == "cnn" else "mnist"
     data = data or FederatedDataset.synthetic(cfg.num_clients, kind=kind,
                                               seed=0)
-    stacked = data.stacked(device)
+    stacked = (data.stacked(device) if rows is None
+               else data.stacked_rows(rows[0], rows[1], device))
     batch = int(min(batch_size, int(stacked.sizes.min())))
     steps = cfg.local_epochs * batches_per_epoch
     s, m = len(seeds), cfg.num_edge_servers
@@ -196,6 +200,7 @@ def sweep_experiments(policies: Union[Sequence[str],
                       resume: bool = False, health: str = "off",
                       stop_after_blocks: Optional[int] = None,
                       telemetry: bool = False,
+                      shard_seeds: Optional[bool] = None,
                       device=None) -> SweepResult:
     """Run every policy for every seed over ``horizon`` training rounds.
 
@@ -230,10 +235,33 @@ def sweep_experiments(policies: Union[Sequence[str],
     realized on the CPU either way (its design) and then moved to
     ``device``. ``slots_per_es`` pins the per-ES slot capacity (a round
     that assigns more raises); ``None`` sizes each round to its largest
-    cohort."""
+    cohort.
+
+    ``shard_seeds`` splits the seeds over the ranks of a
+    ``torch.distributed`` group (the reference's seed mesh,
+    ``seed_split``): each rank runs its seeds and every rank returns the
+    whole result; a resilient run's checkpoints go to ``rank<r>`` under
+    ``checkpoint_dir``."""
     if health not in ("off", "record", "halt"):
         raise ValueError(
             f"health must be 'off', 'record' or 'halt', got {health!r}")
+    split = seed_split(len(seeds), shard_seeds)
+    if split is not None:
+        rank, k = split
+        per = len(seeds) // k
+        mine = [int(x) for x in seeds][rank * per:(rank + 1) * per]
+        local = sweep_experiments(
+            policies, env, mine, horizon, model_kind=model_kind,
+            batch_size=batch_size, batches_per_epoch=batches_per_epoch,
+            eval_every=eval_every, data=data, slots_per_es=slots_per_es,
+            policy_seed_offset=policy_seed_offset, aggregator=aggregator,
+            trim_frac=trim_frac,
+            checkpoint_dir=(None if checkpoint_dir is None else
+                            os.path.join(checkpoint_dir, f"rank{rank}")),
+            resume=resume, health=health,
+            stop_after_blocks=stop_after_blocks, telemetry=telemetry,
+            shard_seeds=False, device=device)
+        return _gather_seeds(local, [int(x) for x in seeds])
     dev = resolve_device(device)
     env = simspec.resolve(env)
     device_env = isinstance(env, simspec.DeviceEnv)
@@ -302,6 +330,68 @@ def sweep_experiments(policies: Union[Sequence[str],
         if ctx is not None and health != "off":
             result.health[name] = ctx.report
     return result
+
+
+def seed_split(n: int, shard_seeds: Optional[bool]):
+    """``(rank, ranks)`` when ``n`` batch elements split over the ranks of
+    the process group (the reference's ``_seed_mesh``: ``shard_seeds``
+    None or True, more than one rank, ``n`` divisible), else None;
+    ``shard_seeds=True`` that cannot split warns and runs unsharded, as
+    the reference does on one device."""
+    from repro_torch.launch.mesh import world_size
+
+    if shard_seeds is False:
+        return None
+    k = world_size()
+    if k <= 1 or n % k != 0:
+        if shard_seeds:
+            warnings.warn(
+                f"seed-axis sharding requested but {n} seeds do not "
+                f"tile {k} device(s); running unsharded", stacklevel=3)
+        return None
+    return torch.distributed.get_rank(), k
+
+
+def gather_objects(obj) -> list:
+    """Every rank's ``obj`` in rank order (one collective)."""
+    from repro_torch.launch.mesh import COLLECTIVES, world_size
+
+    parts = [None] * world_size()
+    torch.distributed.all_gather_object(parts, obj)
+    COLLECTIVES["seeds"] = COLLECTIVES.get("seeds", 0) + 1
+    return parts
+
+
+def _gather_seeds(local: SweepResult, seeds: List[int]) -> SweepResult:
+    """Each rank's ``SweepResult`` over its seeds -> the whole run's, on
+    every rank."""
+    from repro_torch.obs.telemetry import summarize
+
+    parts = gather_objects(local)
+    cat = lambda f, name: np.concatenate([getattr(p, f)[name]
+                                          for p in parts])
+    out = SweepResult(policies=local.policies, seeds=seeds,
+                      eval_rounds=local.eval_rounds, accuracy={}, loss={},
+                      utilities={}, participants={}, selections={},
+                      explored={})
+    for name in local.policies:
+        for f in _BLOCK_FIELDS:
+            getattr(out, f)[name] = cat(f, name)
+        if name in local.health:
+            out.health[name] = {
+                "checked": local.health[name]["checked"],
+                "events": [e for p in parts for e in p.health[name]["events"]]}
+        tele = [p.telemetry.get(name) for p in parts]
+        if all(t is not None for t in tele):
+            series = {k: np.concatenate([t["series"][k] for t in tele])
+                      for k in tele[0]["series"]}
+            totals = {k: np.concatenate([t["totals"][k] for t in tele])
+                      for k in tele[0]["totals"]}
+            out.telemetry[name] = {"series": series, "totals": totals,
+                                   "summary": summarize(series, totals)}
+        else:
+            out.telemetry[name] = None
+    return out
 
 
 _BLOCK_FIELDS = {"accuracy": False, "loss": False, "utilities": True,

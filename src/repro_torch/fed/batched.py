@@ -30,7 +30,8 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch import random as jr
-from repro_torch.experiment.packing import es_counts, pack_assignment
+from repro_torch.experiment.packing import (es_counts, pack_assignment,
+                                            pack_capacity)
 from repro_torch.fed.client import sgd_trajectory
 from repro_torch.fed.edge import broadcast_global, effective_mask_multi
 from repro_torch.fed.robust import robust_aggregate_rows
@@ -111,17 +112,6 @@ def slot_train(slot_params: Params, batches: Dict[str, torch.Tensor],
     return train_slots(slot_params, batches, spec, out, valid)[0]
 
 
-def _capacity(assign: torch.Tensor, m: int, slots: Optional[int]) -> int:
-    peak = max(int(es_counts(assign, m).max()), 1)
-    if slots is None:
-        return peak
-    if peak > slots:
-        raise ValueError(
-            f"a round assigned {peak} clients to one ES but slots_per_es="
-            f"{slots}; raise slots_per_es or leave it None")
-    return slots
-
-
 def corrupt_slots(faults, env_seeds: torch.Tensor, t: torch.Tensor,
                   ci: torch.Tensor, valid: torch.Tensor,
                   num_clients: int) -> torch.Tensor:
@@ -168,20 +158,42 @@ def train_round(spec: BatchedRoundSpec, edge: Dict[str, torch.Tensor],
     (``obs.telemetry.round_frame``), each (S, M, slots): ``arrived``,
     ``valid``, the Eq. 3 weights ``w``, the slot deltas' squared norms
     ``slot_sq`` (after corruption) and ``slot_c``, the corrupted slots
-    (None without corruption)."""
+    (None without corruption). The packing and the slot batches are
+    made here; the rest is ``train_packed``."""
     m, steps = spec.num_edge_servers, spec.steps
-    s = assign.shape[0]
     with record_function("round.train"):
-        cap = _capacity(assign, m, slots)
+        cap = pack_capacity(es_counts(assign, m), slots)
         ci, valid, arrived, tau = pack_assignment(assign, rd.outcomes,
                                                   rd.latency, m, cap)
         idx = device_batch_indices(base_keys, rd.t, ci, stacked.sizes,
                                    steps, batch)      # (S, M, cap, st, B)
         cl, il = ci.long()[..., None, None], idx.long()
+        xb, yb = stacked.x[cl, il], stacked.y[cl, il]  # (S, M, cap, st, B..)
+    return train_packed(spec, edge, ci, valid, arrived, tau, xb, yb, rd.t,
+                        faults, env_seeds, assign.shape[1], taps)
+
+
+def train_packed(spec: BatchedRoundSpec, edge: Dict[str, torch.Tensor],
+                 ci: torch.Tensor, valid: torch.Tensor,
+                 arrived: torch.Tensor, tau: torch.Tensor,
+                 xb: torch.Tensor, yb: torch.Tensor, t: torch.Tensor,
+                 faults=None, env_seeds: Optional[torch.Tensor] = None,
+                 num_clients: int = 0, taps: bool = False):
+    """``train_round`` from its packed cohort on: ``ci``/``valid``/
+    ``arrived``/``tau`` (S, M, slots) as ``pack_assignment`` gives them,
+    the slot batches ``xb`` (S, M, slots, steps, B, ...features) and
+    ``yb`` (S, M, slots, steps, B), ``t`` (S,) the round. Local SGD,
+    update corruption (from ``env_seeds`` over ``num_clients``), the Eq. 6
+    masks, the Eq. 3 rule and the cloud sync; returns as
+    ``train_round``. The sharded cohort engine calls it on its exchanged
+    cohort."""
+    m, steps = spec.num_edge_servers, spec.steps
+    s, _, cap = ci.shape
+    batch = yb.shape[-1]
+    with record_function("round.train"):
         flat = s * m * cap
-        xb = stacked.x[cl, il]                        # (S, M, cap, st, B, F)
         batches = {"x": xb.reshape((flat, steps, batch) + xb.shape[5:]),
-                   "y": stacked.y[cl, il].reshape(flat, steps, batch)}
+                   "y": yb.reshape(flat, steps, batch)}
         slot_params = {k: a[:, :, None].expand((s, m, cap) + a.shape[2:])
                        .reshape((flat,) + a.shape[2:])
                        for k, a in edge.items()}
@@ -196,8 +208,8 @@ def train_round(spec: BatchedRoundSpec, edge: Dict[str, torch.Tensor],
             dim=1) / torch.clamp(filled.sum(dim=1), min=1)
         slot_c = None
         if faults is not None and faults.corrupt_rate > 0.0:
-            slot_c = corrupt_slots(faults, env_seeds, rd.t, ci, valid,
-                                   assign.shape[1])
+            slot_c = corrupt_slots(faults, env_seeds, t, ci, valid,
+                                   num_clients)
             deltas.mul_(_scale(faults, slot_c, valid).reshape(flat, 1))
         w = effective_mask_multi(arrived.reshape(s * m, cap),
                                  tau.reshape(s * m, cap),
@@ -211,10 +223,9 @@ def train_round(spec: BatchedRoundSpec, edge: Dict[str, torch.Tensor],
         new_edge = robust_aggregate_rows(edge, deltas.view(s * m, cap, d),
                                          w, aggregator=spec.aggregator,
                                          trim_frac=spec.trim_frac)
-        if (int(rd.t[0]) + 1) % spec.t_es == 0:
+        if (int(t[0]) + 1) % spec.t_es == 0:
             new_edge = broadcast_global(new_edge)
     parts = (arrived * valid).sum(dim=(1, 2))
     if taps:
         return new_edge, parts, train_loss, record
     return new_edge, parts, train_loss
-

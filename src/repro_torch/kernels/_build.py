@@ -10,13 +10,14 @@ build or load error raises.
 
 ``--fmad=false`` (no contraction of a multiply and an add into one FMA)
 applies only to the sources whose plain versions they must match
-bitwise (the HFL path's five); the attention, scan and router kernels
+bitwise (the HFL path's six); the attention, scan and router kernels
 round differently from their plain versions anyway and keep nvcc's
 default contraction.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -27,13 +28,13 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("context_pairwise", "budgeted_topk", "masked_aggregate",
            "flash_attention", "rwkv6_scan", "moe_router", "random_assign",
-           "flgreedy_walk")
+           "flgreedy_walk", "segment_walk")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BITWISE = ("--fmad=false",)
 EXTRA_FLAGS = {"context_pairwise": BITWISE, "budgeted_topk": BITWISE,
                "masked_aggregate": BITWISE, "random_assign": BITWISE,
-               "flgreedy_walk": BITWISE}
+               "flgreedy_walk": BITWISE, "segment_walk": BITWISE}
 
 
 def flags(name: str) -> tuple:
@@ -75,6 +76,14 @@ def build_all() -> Dict[str, Path]:
     together); returns the shared-library paths."""
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
+    # one builder at a time (ranks of one host share the directory); the
+    # lock dies with its process, so a killed build leaves none behind
+    with open(out / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build_locked(out)
+
+
+def _build_locked(out: Path) -> Dict[str, Path]:
     libs = {n: out / f"lib{n}.so" for n in SOURCES}
     todo = [n for n in SOURCES if not libs[n].exists()]
     procs = {}

@@ -10,11 +10,15 @@ reference's Pallas kernel bit for bit (a tile of N clients gives the
 reference oracle's single segment, padded). ``greedy_walk`` is the
 reference's walk over those segments: each segment exposes its first
 still-feasible head, ``merge_heads`` takes the best head across segments,
-and the budget and assignment advance, one pick per iteration.
+and the budget and assignment advance, one pick per iteration. Both
+walks take the reference's shard hooks (``merge``, ``base``,
+``local_clients``): a client shard walks its own segments and merges
+each pick across shards (``repro_torch.mesh.select``).
 
 The walks are batched over seeds with a per-seed ``live`` flag and read
 it back once per iteration (``live.any()``, a host sync on a CUDA
-tensor); ``WALK_SYNCS`` counts them. ``budgeted_topk_ref`` composes the
+tensor); the P2 walk reads once more to cut its rows' prefix.
+``WALK_SYNCS`` counts them. ``budgeted_topk_ref`` composes the
 sort and the P2 walk into the function the CUDA kernel computes;
 ``candidate_keys_ref`` is the kernel's sort alone (every eligible pair of
 a seed as one sorted list of 64-bit keys), and ``flgreedy_walk`` with
@@ -31,7 +35,8 @@ from repro_torch.core.fmath import rcp, sqrt_rn
 
 DEFAULT_TILE = 128
 
-WALK_SYNCS: Dict[str, int] = {"greedy_walk": 0, "flgreedy_walk": 0}
+WALK_SYNCS: Dict[str, int] = {"greedy_walk": 0, "flgreedy_walk": 0,
+                              "sharded_walk": 0}
 
 
 def pair_density(values: torch.Tensor, costs: torch.Tensor,
@@ -79,14 +84,13 @@ def density_sort_ref(values: torch.Tensor, costs: torch.Tensor,
     return sort_desc(d, ix)
 
 
-# the reference's name for the sorted layout; plain on every device
-sorted_candidates = density_sort_ref
-
-
 class Segments(NamedTuple):
     """Sorted candidate segments, (S, nseg, P) each: density (pads
-    -inf), flat candidate index, client row, ES column, and the
-    candidate's cost and value carried per column."""
+    -inf), the *global* flat candidate index ``(base + row) * M + es``,
+    the *local* client row, the ES column, and the candidate's cost and
+    value carried per column (the reference's ``Segments``: a client
+    shard's segments merge heads with other shards' without
+    renumbering, and its walk indexes its own rows)."""
     density: torch.Tensor
     flat: torch.Tensor
     loc: torch.Tensor
@@ -96,47 +100,82 @@ class Segments(NamedTuple):
 
 
 def build_segments(values: torch.Tensor, costs: torch.Tensor,
-                   eligible: torch.Tensor, tile: int = DEFAULT_TILE
-                   ) -> Segments:
+                   eligible: torch.Tensor, tile: int = DEFAULT_TILE,
+                   base: int = 0, sort=None) -> Segments:
+    """``Segments`` of a (S, n, M) block whose rows are the global
+    clients ``base .. base+n``; ``sort`` is the tile sort
+    (``density_sort_ref`` unless given: ``ops`` routes it by device)."""
     s, n, m = values.shape
-    d_s, i_s = sorted_candidates(values, costs, eligible, tile)
+    d_s, i_s = (sort or density_sort_ref)(values, costs, eligible, tile)
     flat = torch.clamp(i_s.to(torch.int64), 0, n * m - 1)  # pads: d=-inf
     loc, es = flat // m, flat % m
     shape = flat.shape
     cost = torch.gather(costs, 1, loc.reshape(s, -1)).reshape(shape)
     value = torch.gather(values.reshape(s, -1), 1,
                          flat.reshape(s, -1)).reshape(shape)
-    return Segments(density=d_s, flat=flat, loc=loc, es=es, cost=cost,
-                    value=value)
+    return Segments(density=d_s, flat=flat + int(base) * m, loc=loc, es=es,
+                    cost=cost, value=value)
 
 
-def merge_heads(head_d: torch.Tensor, head_i: torch.Tensor,
-                head_c: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Best head per seed over the segment axis: max density, ties
-    toward the larger flat index. Returns (ok, pick, cost), each (S,)."""
+def merge_heads(head_d: torch.Tensor, head_i: torch.Tensor, aux=()):
+    """Best head per seed over the last axis: max density, ties toward
+    the larger flat index; each ``aux`` stream is read at the picked
+    flat index. Returns (ok, pick, aux), each (S,). A sharded walk
+    substitutes ``mesh.select.merge_over_shards``, which merges in two
+    levels to the same pick (max is associative, flats are unique)."""
     dmax = head_d.max(dim=-1).values
     ok = dmax > -torch.inf
-    pick = torch.where(head_d == dmax[:, None], head_i,
+    pick = torch.where(head_d == dmax[..., None], head_i,
                        torch.full_like(head_i, -1)).max(dim=-1).values
     pick = torch.clamp(pick, min=0)
-    cost = torch.where(head_i == pick[:, None], head_c,
-                       torch.full_like(head_c, -torch.inf)
-                       ).max(dim=-1).values
-    return ok, pick, cost
+    out = tuple(torch.where(head_i == pick[..., None], a,
+                            torch.full_like(a, -torch.inf)
+                            ).max(dim=-1).values for a in aux)
+    return ok, pick, out
+
+
+def _apply_pick(assign, remaining, act, pick, cost, m: int, base: int):
+    """A pick of the global flat index ``pick`` (S,): the owner of its
+    client row writes the assignment, every walker spends the budget."""
+    rows = torch.arange(assign.shape[0], device=assign.device)
+    gi, j = pick // m, pick % m
+    n_loc = assign.shape[1]
+    owns = act & (gi >= base) & (gi < base + n_loc)
+    li = torch.clamp(gi - base, 0, n_loc - 1)
+    assign[rows, li] = torch.where(owns, j, assign[rows, li])
+    remaining[rows, j] = torch.where(act, remaining[rows, j] + (-cost),
+                                     remaining[rows, j])
 
 
 def greedy_walk(segs: Segments, budgets: torch.Tensor, *, num_es: int,
-                num_clients: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                num_clients: int, local_clients: int = 0, base: int = 0,
+                merge=merge_heads, counter: str = "greedy_walk"
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The P2 density-greedy budget walk over sorted ``Segments``.
-    budgets (S, M) float32. Returns (assign (S, N) int32, remaining)."""
+    budgets (S, M) float32. Returns (assign (S, n_loc) int32, remaining).
+
+    With the defaults it is the dense walk. A client shard passes its
+    own segments, ``local_clients`` rows starting at global ``base`` and
+    a cross-shard ``merge``: it then returns its rows of the dense
+    assignment, and every shard the same budgets (the reference's
+    ``ops.greedy_walk`` hooks). On a CUDA tensor it syncs with the
+    host once to cut the rows' prefix and once a pick to read ``live``
+    back; ``WALK_SYNCS[counter]`` counts both."""
     m, n = num_es, num_clients
+    n_loc = local_clients or n
     s = segs.density.shape[0]
     dev = segs.density.device
-    rows = torch.arange(s, device=dev)
-    assign = torch.full((s, n), -1, dtype=torch.int64, device=dev)
+    assign = torch.full((s, n_loc), -1, dtype=torch.int64, device=dev)
     remaining = budgets.to(torch.float32).clone()
     live = torch.ones(s, dtype=torch.bool, device=dev)
+    # rows are sorted, so no entry past a row's last positive density can
+    # be picked: walk the shortest prefix holding every row's positives
+    # (exact; one host read)
+    last = (segs.density > 0.0).flatten(0, -2).any(dim=0).nonzero()
+    k = int(last[-1]) + 1 if last.numel() else 1
+    if dev.type == "cuda":
+        WALK_SYNCS[counter] += 1
+    segs = Segments(*(f[..., :k] for f in segs))
     positive = segs.density > 0.0
     loc = segs.loc.reshape(s, -1)
     es = segs.es.reshape(s, -1)
@@ -150,16 +189,13 @@ def greedy_walk(segs: Segments, budgets: torch.Tensor, *, num_es: int,
         head = lambda a, fill: torch.where(
             hit, torch.gather(a, -1, first).squeeze(-1),
             torch.full_like(hit, fill, dtype=a.dtype))
-        ok, pick, cost = merge_heads(head(segs.density, -torch.inf),
-                                     head(segs.flat, -1),
-                                     head(segs.cost, -torch.inf))
+        ok, pick, (cost,) = merge(head(segs.density, -torch.inf),
+                                  head(segs.flat, -1),
+                                  (head(segs.cost, -torch.inf),))
         act = ok & live
-        gi, j = pick // m, pick % m
-        assign[rows, gi] = torch.where(act, j, assign[rows, gi])
-        remaining[rows, j] = torch.where(act, remaining[rows, j] + (-cost),
-                                         remaining[rows, j])
+        _apply_pick(assign, remaining, act, pick, cost, m, base)
         live = act
-        WALK_SYNCS["greedy_walk"] += 1
+        WALK_SYNCS[counter] += 1
         if not bool(live.any()):
             break
     return assign.to(torch.int32), remaining
@@ -219,23 +255,27 @@ def flgreedy_gains(total: torch.Tensor, v: torch.Tensor, rcp_m: float
 
 
 def flgreedy_walk(segs: Segments, budgets: torch.Tensor, *, num_es: int,
-                  num_clients: int, m_div: float
+                  num_clients: int, m_div: float, local_clients: int = 0,
+                  base: int = 0, merge=merge_heads,
+                  counter: str = "flgreedy_walk"
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The P3 cost-benefit walk (Eq. 19 sqrt utility) over ``Segments``:
     gains depend on the running total, so every pick rescores every
     eligible candidate, ``gain / max(cost, 1e-12)``, and takes the best
     (ties toward the larger flat index) while its gain exceeds 1e-15.
-    budgets (S, M) float32. Returns (assign (S, N) int32, remaining)."""
+    budgets (S, M) float32. Returns (assign (S, n_loc) int32,
+    remaining). The shard hooks are ``greedy_walk``'s: ``merge`` reduces
+    the whole rescored stream, its aux the picked value and cost."""
     m, n = num_es, num_clients
+    n_loc = local_clients or n
     s = segs.density.shape[0]
     dev = segs.density.device
-    rows = torch.arange(s, device=dev)
     flat = segs.flat.reshape(s, -1)
     loc, es = segs.loc.reshape(s, -1), segs.es.reshape(s, -1)
     v, c = segs.value.reshape(s, -1), segs.cost.reshape(s, -1)
     cand = (segs.density.reshape(s, -1) > -torch.inf) & (c > 0)
     rcp_m = rcp(m_div)
-    assign = torch.full((s, n), -1, dtype=torch.int64, device=dev)
+    assign = torch.full((s, n_loc), -1, dtype=torch.int64, device=dev)
     remaining = budgets.to(torch.float32).clone()
     total = torch.zeros(s, dtype=torch.float32, device=dev)
     live = torch.ones(s, dtype=torch.bool, device=dev)
@@ -245,23 +285,13 @@ def flgreedy_walk(segs: Segments, budgets: torch.Tensor, *, num_es: int,
                 & (c <= torch.gather(remaining, 1, es) + 1e-12))
         r = torch.where(feas, gains / torch.clamp(c, min=1e-12),
                         torch.full_like(gains, -torch.inf))
-        rmax = r.max(dim=-1).values
-        pick = torch.where(r == rmax[:, None], flat,
-                           torch.full_like(flat, -1)).max(dim=-1).values
-        pick = torch.clamp(pick, min=0)
-        at = torch.argmax((flat == pick[:, None]).to(torch.uint8), dim=-1,
-                          keepdim=True)
-        pv = torch.gather(v, 1, at)[:, 0]
-        pc = torch.gather(c, 1, at)[:, 0]
+        ok, pick, (pv, pc) = merge(r, flat, (v, c))
         g = flgreedy_gains(total, pv, rcp_m)
-        act = (rmax > -torch.inf) & (g > 1e-15) & live
-        gi, j = pick // m, pick % m
-        assign[rows, gi] = torch.where(act, j, assign[rows, gi])
-        remaining[rows, j] = torch.where(act, remaining[rows, j] + (-pc),
-                                         remaining[rows, j])
+        act = ok & (g > 1e-15) & live
+        _apply_pick(assign, remaining, act, pick, pc, m, base)
         total = torch.where(act, total + pv, total)
         live = act
-        WALK_SYNCS["flgreedy_walk"] += 1
+        WALK_SYNCS[counter] += 1
         if not bool(live.any()):
             break
     return assign.to(torch.int32), remaining

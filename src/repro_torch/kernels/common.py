@@ -24,7 +24,8 @@ import torch
 LAUNCHES: Dict[str, int] = {"context_pairwise": 0, "budgeted_topk": 0,
                             "masked_aggregate": 0, "flash_attention": 0,
                             "rwkv6_scan": 0, "moe_router": 0,
-                            "random_assign": 0, "flgreedy_walk": 0}
+                            "random_assign": 0, "flgreedy_walk": 0,
+                            "density_sort_tiles": 0, "segment_walk": 0}
 
 
 def reset_launches() -> None:

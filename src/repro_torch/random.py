@@ -91,12 +91,19 @@ def _shape(shape: Union[int, Sequence[int]]) -> tuple:
         else tuple(int(s) for s in shape)
 
 
-def bits(key: torch.Tensor, shape) -> torch.Tensor:
+def bits(key: torch.Tensor, shape, at: torch.Tensor = None
+         ) -> torch.Tensor:
     """``jax.random.bits`` (uint32 words in int64):
-    ``key.shape[:-1] + shape``."""
-    shape = _shape(shape)
-    n = math.prod(shape)
-    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    ``key.shape[:-1] + shape``. ``at`` (int64 flat indices into
+    ``shape``) evaluates only those words of the stream, in ``at``'s
+    shape: counter i is the flat index, so a slice of the draw costs
+    only its own words (the sharded engine's rows)."""
+    if at is None:
+        shape = _shape(shape)
+        i = torch.arange(math.prod(shape), dtype=torch.int64,
+                         device=key.device)
+    else:
+        shape, i = tuple(at.shape), at.reshape(-1)
     batch = key.shape[:-1]
     k1 = key[..., 0].reshape(batch + (1,))
     k2 = key[..., 1].reshape(batch + (1,))
@@ -104,17 +111,17 @@ def bits(key: torch.Tensor, shape) -> torch.Tensor:
     return (o1 ^ o2).reshape(batch + shape)
 
 
-def _unit(key: torch.Tensor, shape) -> torch.Tensor:
+def _unit(key: torch.Tensor, shape, at=None) -> torch.Tensor:
     """Floats in [0, 1) from the top 23 bits, as jax's ``_uniform``."""
-    b = (bits(key, shape) >> 9) | 0x3F800000
+    b = (bits(key, shape, at) >> 9) | 0x3F800000
     return b.to(torch.int32).view(torch.float32) - 1.0
 
 
 def uniform(key: torch.Tensor, shape, minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform`` (float32)."""
+            maxval: float = 1.0, at: torch.Tensor = None) -> torch.Tensor:
+    """``jax.random.uniform`` (float32); ``at`` as in ``bits``."""
     lo, hi = np.float32(minval), np.float32(maxval)
-    f = _unit(key, shape)
+    f = _unit(key, shape, at)
     f = f * float(np.float32(hi - lo)) + float(lo)
     return torch.clamp(f, min=float(lo))
 
@@ -147,17 +154,20 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * torch.inf, out)
 
 
-def normal(key: torch.Tensor, shape) -> torch.Tensor:
+def normal(key: torch.Tensor, shape, at: torch.Tensor = None
+           ) -> torch.Tensor:
     """``jax.random.normal`` (float32): ``sqrt(2) * erf_inv(u)`` with ``u``
-    uniform on ``[nextafter(-1, 0), 1)``."""
+    uniform on ``[nextafter(-1, 0), 1)``; ``at`` as in ``bits``."""
     lo = np.nextafter(np.float32(-1.0), np.float32(0.0), dtype=np.float32)
-    u = uniform(key, shape, float(lo), 1.0)
+    u = uniform(key, shape, float(lo), 1.0, at)
     return float(np.float32(np.sqrt(2))) * erf_inv(u)
 
 
-def exponential(key: torch.Tensor, shape) -> torch.Tensor:
-    """``jax.random.exponential`` (float32): ``-log1p(-u)``."""
-    return -torch.log1p(-uniform(key, shape))
+def exponential(key: torch.Tensor, shape, at: torch.Tensor = None
+                ) -> torch.Tensor:
+    """``jax.random.exponential`` (float32): ``-log1p(-u)``; ``at`` as
+    in ``bits``."""
+    return -torch.log1p(-uniform(key, shape, at=at))
 
 
 def randint(key: torch.Tensor, shape, minval, maxval) -> torch.Tensor:

@@ -13,6 +13,11 @@ not made shifts no other stream.
 The fault streams (tags 7-11, ``fault_draws``) are drawn only when a
 ``FaultSpec`` enables their process.
 
+``shard_round_draws``/``shard_fault_draws`` give a client shard's rows
+of the dense draws bit for bit, computing only those rows (the sharded
+cohort engine, ``repro_torch.mesh``): counter i of a draw is its flat
+index, so a row slice is a slice of counters.
+
 The host simulator (``core.network.HFLNetworkSim``, float64 numpy) takes
 ``host_init_draws`` / ``host_round_draws`` / ``host_fault_draws``:
 float64 numpy views of the same float32 draws, made on the CPU. ``host_round_draws`` realizes a
@@ -116,6 +121,43 @@ def round_draws(seed, t, n: int, m: int, k_mc: int,
     )
 
 
+def _rows(lead: int, n: int, width: int, lo: int, n_local: int,
+          device) -> torch.Tensor:
+    """Flat indices of rows ``lo .. lo+n_local`` of a ``(lead, n,
+    width)`` draw, as a ``(lead, n_local, width)`` int64 tensor."""
+    r = torch.arange(lo, lo + n_local, dtype=torch.int64, device=device)
+    c = torch.arange(width, dtype=torch.int64, device=device)
+    k = torch.arange(lead, dtype=torch.int64, device=device)
+    return (k[:, None, None] * n + r[None, :, None]) * width + c
+
+
+def shard_round_draws(seed, t, n: int, m: int, k_mc: int, lo: int,
+                      n_local: int, device=None) -> RoundDraws:
+    """Rows ``lo .. lo+n_local`` of ``round_draws(seed, t, n, m, k_mc)``
+    bit for bit (the ``mc_*`` fields sliced along their client axis),
+    computing only those rows' words: counter i of a draw is its flat
+    index, so no dense ``(N, ...)`` tensor is made."""
+    k = round_key(seed, t, device)
+    dev = k.device
+    sub = lambda tag: jr.fold_in(k, tag)
+    at = lambda w, lead=1: _rows(lead, n, w, lo, n_local, dev)
+    one = lambda w: at(w)[0] if w > 1 else at(1)[0, :, 0]
+    if k_mc > 0:
+        mc = lambda tag: jr.exponential(sub(tag), None, at(m, k_mc))
+    else:
+        mc = lambda tag: torch.empty(k.shape[:-1] + (0, n_local, m),
+                                     dtype=torch.float32, device=dev)
+    return RoundDraws(
+        move=jr.normal(sub(_MOVE), None, one(2)),
+        bw_n=jr.normal(sub(_BWJ), None, one(1)),
+        comp_n=jr.normal(sub(_COMPJ), None, one(1)),
+        fad_dt=jr.exponential(sub(_FDT), None, one(m)),
+        fad_ut=jr.exponential(sub(_FUT), None, one(m)),
+        mc_dt=mc(_MCDT),
+        mc_ut=mc(_MCUT),
+    )
+
+
 _FAULT_TAGS = {"drop_u": (_FDROP, False), "strag_u": (_FSTRAG_U, False),
                "strag_e": (_FSTRAG_E, False), "out_u": (_FOUT, True),
                "corr_u": (_FCORR, False)}
@@ -133,6 +175,24 @@ def fault_draws(seed, t, n: int, m: int, device=None,
         tag, per_es = _FAULT_TAGS[f]
         draw = jr.exponential if f == "strag_e" else jr.uniform
         out[f] = draw(jr.fold_in(k, tag), (m if per_es else n,))
+    return FaultDraws(**{f: out.get(f) for f in FaultDraws._fields})
+
+
+def shard_fault_draws(seed, t, n: int, m: int, lo: int, n_local: int,
+                      device=None,
+                      fields: Sequence[str] = FaultDraws._fields
+                      ) -> FaultDraws:
+    """Rows ``lo .. lo+n_local`` of ``fault_draws`` bit for bit: the
+    per-client streams sliced, the per-ES ``out_u`` whole (M,)."""
+    k = round_key(seed, t, device)
+    rows = torch.arange(lo, lo + n_local, dtype=torch.int64,
+                        device=k.device)
+    out = {}
+    for f in fields:
+        tag, per_es = _FAULT_TAGS[f]
+        draw = jr.exponential if f == "strag_e" else jr.uniform
+        key = jr.fold_in(k, tag)
+        out[f] = draw(key, (m,)) if per_es else draw(key, None, at=rows)
     return FaultDraws(**{f: out.get(f) for f in FaultDraws._fields})
 
 

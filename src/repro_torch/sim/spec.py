@@ -10,8 +10,10 @@ constants.
 Presets: the paper-scale scenarios (``paper``, ``static-clients``,
 ``high-mobility``, ``tiered-pricing``) at N=50, M=3, and the cohorts
 ``metropolis-1k`` (1000 clients, 12 ES) and ``bursty-arrival`` (1024
-clients, 8 ES, duty-cycled availability). ``flash-crowd`` discounts a
-permuted cohort's prices during periodic surges.
+clients, 8 ES, duty-cycled availability), and the mesh-scale
+``metropolis-100k`` (32 ES) and ``metropolis-1m`` (64 ES).
+``flash-crowd`` discounts a permuted cohort's prices during periodic
+surges.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional, Tuple
 
 from repro_torch.configs.paper_hfl import (BURSTY_1K, METROPOLIS_1K,
+                                           METROPOLIS_1M, METROPOLIS_100K,
                                            MNIST_CONVEX, HFLExperimentConfig)
 from repro_torch.core.network import _dbm_to_watt, context_rate_hi
 from repro_torch.envs.scenarios import SCENARIOS, ScenarioSpec, tier_edges
@@ -119,11 +122,21 @@ METROPOLIS_SCEN = ScenarioSpec(name="metropolis-1k", mobility=0.3,
                                jitter=0.4)
 BURSTY_SCEN = ScenarioSpec(name="bursty-arrival", mobility=0.2, jitter=0.3,
                            arrival_period=40, arrival_duty=0.35)
+# the mesh-scale cohorts (``repro_torch.mesh``): duty-cycled arrival
+# waves, so only a fraction of the metropolis is reachable a round
+METROPOLIS_100K_SCEN = ScenarioSpec(name="metropolis-100k", mobility=0.3,
+                                    jitter=0.4, arrival_period=50,
+                                    arrival_duty=0.3)
+METROPOLIS_1M_SCEN = ScenarioSpec(name="metropolis-1m", mobility=0.3,
+                                  jitter=0.4, arrival_period=80,
+                                  arrival_duty=0.25)
 
 PRESETS: Dict[str, Tuple[HFLExperimentConfig, ScenarioSpec]] = {
     **{name: (MNIST_CONVEX, scen) for name, scen in SCENARIOS.items()},
     "metropolis-1k": (METROPOLIS_1K, METROPOLIS_SCEN),
     "bursty-arrival": (BURSTY_1K, BURSTY_SCEN),
+    "metropolis-100k": (METROPOLIS_100K, METROPOLIS_100K_SCEN),
+    "metropolis-1m": (METROPOLIS_1M, METROPOLIS_1M_SCEN),
 }
 
 

@@ -41,6 +41,12 @@ LN2 = f32(np.log(2.0))
 SPECTRAL_MAX = f32(np.float32(80.0) / np.float32(LN2))
 
 
+# pairs a pass of the integral takes: its (64, pairs) float32 temporaries
+# stay near 1 GB, where a metropolis-1m round's 64M pairs would need 16 GB
+# each; every pair's value is its own, so the passes change no result
+CHUNK_PAIRS = 1 << 22
+
+
 def analytic_true_p(bandwidth: torch.Tensor, compute: torch.Tensor,
                     g0: torch.Tensor, *, tx_w: float, noise_psd_w: float,
                     update_bits: float, workload: float,
@@ -49,7 +55,23 @@ def analytic_true_p(bandwidth: torch.Tensor, compute: torch.Tensor,
 
     ``bandwidth`` and ``compute`` broadcast against ``g0`` (S, N, M) as in
     the latency computation (pass ``bandwidth[..., None]``). The guards
-    ``max(r, 1e-9)`` and ``max(compute, 1e-9)`` are the latency's."""
+    ``max(r, 1e-9)`` and ``max(compute, 1e-9)`` are the latency's. Past
+    ``CHUNK_PAIRS`` pairs the clients go in blocks."""
+    kw = dict(tx_w=tx_w, noise_psd_w=noise_psd_w, update_bits=update_bits,
+              workload=workload, deadline_s=deadline_s)
+    n = g0.shape[-2]
+    step = max(1, CHUNK_PAIRS // max(1, g0.numel() // max(n, 1)))
+    if n <= step:
+        return _true_p(bandwidth, compute, g0, **kw)
+    rows = lambda a, i: a.narrow(-2, i, min(step, n - i)) \
+        if a.shape[-2] == n else a
+    return torch.cat([_true_p(rows(bandwidth, i), rows(compute, i),
+                              rows(g0, i), **kw)
+                      for i in range(0, n, step)], dim=-2)
+
+
+def _true_p(bandwidth, compute, g0, *, tx_w, noise_psd_w, update_bits,
+            workload, deadline_s):
     dev = g0.device
     b = bandwidth
     c = (g0 * f32(tx_w)) / (b * f32(noise_psd_w))

@@ -5,11 +5,12 @@ A spec writes the reference's JSON string and reads the reference's.
 Tier 1 on a device env equals ``repro.run`` bitwise (selections,
 utilities, participants, explored, and the provenance: tier, env
 backend, draw schedule). Tier 4 on ``paper`` gives the reference's
-selections bitwise and its accuracy within ``SWEEP_ACC_TOL``. Every part
-of a spec the port does not have raises, naming its ROADMAP item, before
-any work starts (the env is never built), and ``device=None`` raises
-without CUDA. The host env, tiers 2 and 3 and grids are held to the
-reference in ``test_torch_api_host.py`` and ``test_torch_grid.py``."""
+selections bitwise and its accuracy within ``SWEEP_ACC_TOL``. The specs
+that named ROADMAP queue A item 4 run, resolve, or raise the
+reference's exception before any work starts (the env is never built),
+and ``device=None`` raises without CUDA. The host env, tiers 2 and 3
+and grids are held to the reference in ``test_torch_api_host.py`` and
+``test_torch_grid.py``."""
 import dataclasses
 
 import numpy as np
@@ -135,51 +136,91 @@ def _spec(**kw):
 
 
 REFUSALS = {
-    # faults, robust rules, transposed_gemm, obs, checkpoints and the
-    # health guard run now; what a spec that holds them also asks for
-    # and the port lacks (a sharded layout) is still refused
+    # what the reference runs, the port runs (tier 1 ignores
+    # shard_seeds; a batched grid ignores its cells' ShardSpec), or, for
+    # a mesh-scale cohort, resolves (its bandit run is too large for a
+    # CPU test); what the reference refuses, the port refuses with the
+    # reference's exception, before any work
     "host env": (_spec(env=TA.EnvSpec(
         "paper", faults=FaultSpec(dropout_rate=0.2)),
-        obs=ObsSpec(telemetry=True), shard_seeds=True), "item 4"),
+        obs=ObsSpec(telemetry=True), shard_seeds=True), ("runs", 1)),
     "host env, training": (_spec(env=TA.EnvSpec("paper", backend="host"),
                                  train=TA.TrainSpec(transposed_gemm=True),
                                  eval=TA.EvalSpec(checkpoint_dir="ckpt"),
                                  shard=TA.ShardSpec(clients=2)),
-                           "item 4"),
-    # a grid runs now; every cell's refusals come before any work
+                           (ValueError, "resolved to tier 3")),
     "grid": (_spec(obs=ObsSpec(telemetry=True),
                    shard=TA.ShardSpec(clients=2)).grid(budget=[1.0, 2.0]),
-             "item 4"),
+             ("runs", 1)),
     "transposed logreg": (_spec(train=TA.TrainSpec(transposed_gemm=True),
-                                shard=TA.ShardSpec(clients=2)), "item 4"),
+                                shard=TA.ShardSpec(clients=2)),
+                          ("ranks", 4)),
     "faults": (_spec(env=TA.EnvSpec(
         "metropolis-1k", faults=FaultSpec(outage_rate=0.1)),
-        eval=TA.EvalSpec(health="halt"), shard_seeds=True), "item 4"),
+        eval=TA.EvalSpec(health="halt"), shard_seeds=True), ("runs", 1)),
     "obs": (_spec(obs=ObsSpec(telemetry=True, trace="trace.jsonl"),
-                  shard=TA.ShardSpec(clients=2)), "item 4"),
+                  shard=TA.ShardSpec(clients=2)),
+            (ValueError, "resolved to tier 1")),
     "checkpoint": (_spec(eval=TA.EvalSpec(checkpoint_dir="ckpt"),
-                         env=TA.EnvSpec("metropolis-1m")), "item 4"),
+                         env=TA.EnvSpec("metropolis-1m")),
+                   ("resolves", (1_000_000, 64, 80))),
     "health": (_spec(eval=TA.EvalSpec(health="record"), shard_seeds=True),
-               "item 4"),
+               ("runs", 1)),
     "aggregator": (_spec(train=TA.TrainSpec(aggregator="median"),
                          eval=TA.EvalSpec(resume=True),
-                         shard=TA.ShardSpec(clients=2)), "item 4"),
-    "shard": (_spec(shard=TA.ShardSpec(clients=2)), "item 4"),
-    "shard seeds": (_spec(shard_seeds=True), "item 4"),
-    "mesh cohort": (_spec(env=TA.EnvSpec("metropolis-100k")), "item 4"),
+                         shard=TA.ShardSpec(clients=2)),
+                   (NotImplementedError, "aggregator 'median'")),
+    "shard": (_spec(shard=TA.ShardSpec(clients=2)),
+              (ValueError, "resolved to tier 1")),
+    "shard seeds": (_spec(shard_seeds=True), ("runs", 1)),
+    "mesh cohort": (_spec(env=TA.EnvSpec("metropolis-100k")),
+                    ("resolves", (100_000, 32, 50))),
 }
 
 
 @pytest.mark.parametrize("name", sorted(REFUSALS))
-def test_refusals_before_any_work(name, monkeypatch):
-    spec, item = REFUSALS[name]
+def test_refusals_before_any_work(name, monkeypatch, tmp_path):
+    """Each spec that named queue A item 4 before the sharded cohort was
+    ported: run, resolved, or refused as the reference refuses it."""
+    spec, (what, arg) = REFUSALS[name]
+    if what == "runs":
+        got = repro_torch.run(spec, device="cpu")
+        for r in (got.results if hasattr(got, "results") else [got]):
+            assert r.tier == arg and r.selections.shape[:2] == (1, 2)
+        return
+    if what == "resolves":
+        env = TA.build_env(spec.env)
+        policy = TA.build_policy(spec.policy, env.cfg, spec.horizon)
+        assert (env.cfg.num_clients, env.cfg.num_edge_servers,
+                env.spec.arrival_period) == arg
+        assert TA.select_tier(spec, policy, env) == 1
+        return
+    if what == "ranks":
+        # on a group of two ranks it runs, bitwise the dense run
+        from repro_torch.data.federated import FederatedDataset
+        from repro_torch.launch.mesh import run_specs, spawn_local
+        data = dict(num_clients=1000, kind="tiny", samples_per_client=20,
+                    seed=0)
+        rows = spawn_local(run_specs, 2, backend="gloo", device="cpu",
+                           init_file=str(tmp_path / "rdv"),
+                           args=([spec.to_json()], data), timeout=240.0)
+        dense = repro_torch.run(dataclasses.replace(spec, shard=None),
+                                data=FederatedDataset.synthetic(**data),
+                                device="cpu")
+        assert dense.tier == 4
+        for r in rows:
+            assert r[0]["tier"] == arg
+            for f in FIELDS + ("accuracy", "loss"):
+                assert np.array_equal(np.asarray(getattr(dense, f)),
+                                      r[0][f]), f
+        return
 
     def no_env(*a, **k):
         raise AssertionError("the env was built before the refusal")
 
     monkeypatch.setattr(tspec, "make", no_env)
     common.reset_launches()
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue A {item}"):
+    with pytest.raises(what, match=arg):
         repro_torch.run(spec, device="cpu")
     assert not any(common.LAUNCHES.values())
 

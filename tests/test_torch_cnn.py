@@ -15,6 +15,7 @@ import torch  # noqa: E402
 
 from _torch_parity import NORMAL_MAX_ULP, t_, ulp_gap  # noqa: E402
 from repro.configs.paper_hfl import CIFAR10_NONCONVEX as JNC  # noqa: E402
+from repro.configs.paper_hfl import CONFIGS as J_CONFIGS  # noqa: E402
 from repro.data.federated import FederatedDataset as JData  # noqa: E402
 from repro.models.logistic import cnn_logits as jax_logits  # noqa: E402
 from repro.models.logistic import init_cnn as jax_init  # noqa: E402
@@ -47,8 +48,10 @@ def test_config_is_the_reference_one():
     from dataclasses import asdict
     assert asdict(CIFAR10_NONCONVEX) == asdict(JNC)
     assert CONFIGS["cifar10-nonconvex"] is CIFAR10_NONCONVEX
-    assert sorted(CONFIGS) == ["cifar10-nonconvex", "mnist-bursty-1k",
-                               "mnist-convex", "mnist-metropolis-1k"]
+    # the reference's registry, the mesh-scale cohorts included
+    assert sorted(CONFIGS) == sorted(J_CONFIGS)
+    for name, cfg in J_CONFIGS.items():
+        assert asdict(CONFIGS[name]) == asdict(cfg), name
 
 
 @pytest.mark.parametrize("h,w,seed", [(16, 16, 0), (32, 32, 3)])

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions (the six that
-replace TPU kernels, and Random's scan and P3's walk). These
+replace TPU kernels with B2's tile grid, and Random's scan, P3's walk and
+P2's segment walk). These
 need an NVIDIA GPU (and nvcc to build the kernels at first use); on a
 machine without one they skip. On the card:
 
@@ -162,13 +163,103 @@ def test_budgeted_topk_seeds_of_different_walk_lengths(dev):
 
 
 def test_budgeted_topk_refuses_over_the_limit(dev):
-    from repro_torch.kernels.budgeted_topk.kernel import MAX_PAIRS
-    from repro_torch.kernels.budgeted_topk.ops import budgeted_topk_walk
+    """The one-pass kernel keeps its limit; past it ``budgeted_topk_walk``
+    takes the tile grid and the segment walk instead (tested below)."""
+    from repro_torch.kernels.budgeted_topk.kernel import (MAX_PAIRS,
+                                                          budgeted_topk_kernel)
     before = common.LAUNCHES["budgeted_topk"]
     with pytest.raises(ValueError, match=str(MAX_PAIRS)):
-        budgeted_topk_walk(*_topk_inputs(dev, 1, MAX_PAIRS + 1, 1,
-                                         "random"))
+        budgeted_topk_kernel(*_topk_inputs(dev, 1, MAX_PAIRS + 1, 1,
+                                           "random"))
     assert common.LAUNCHES["budgeted_topk"] == before
+
+
+def _tile_inputs(dev, s, n, m, kind, seed=0):
+    """``_topk_inputs`` plus the cases of the tile grid: an ES no client
+    can afford, all budgets zero."""
+    v, c, b, e = _topk_inputs(dev, s, n, m,
+                              kind if kind in ("ties", "ineligible",
+                                               "negative-cost") else "random",
+                              seed)
+    if kind == "dead-es":
+        b[:, 0] = 0.1                   # below every cost
+    elif kind == "zero-budget":
+        b.zero_()
+    elif kind == "dense":               # nearly every pair eligible
+        e = torch.rand(e.shape, generator=torch.Generator(device=dev)
+                       .manual_seed(seed), device=dev) < 0.95
+        b = b * 40.0
+    return v, c, b, e
+
+
+TILE_CASES = [(2, 3000, 12, 256, "random"), (1, 37, 3, 16, "random"),
+              (2, 1000, 12, 128, "ties"), (2, 2000, 8, 512, "ineligible"),
+              (2, 3000, 12, 1024, "dead-es"), (1, 5000, 4, 4096, "dense"),
+              (2, 4100, 5, 2048, "negative-cost"),
+              (1, 20000, 1, 16384, "zero-budget")]
+
+
+@pytest.mark.parametrize("s,n,m,tile,kind", TILE_CASES)
+def test_density_sort_tiles(dev, s, n, m, tile, kind):
+    """B2's tile grid, the TPU kernel's own layout: one launch, each
+    row's densities and flat indices bitwise ``density_sort_ref``."""
+    from repro_torch.kernels.budgeted_topk.kernel import \
+        density_sort_tiles_kernel
+    from repro_torch.kernels.budgeted_topk.ref import density_sort_ref
+    v, c, _, e = _tile_inputs(dev, s, n, m, kind, seed=n + m)
+    before = common.LAUNCHES["density_sort_tiles"]
+    kd, ki = density_sort_tiles_kernel(v, c, e, tile)
+    assert common.LAUNCHES["density_sort_tiles"] == before + 1
+    rd, ri = density_sort_ref(v, c, e, tile)
+    assert torch.equal(kd.view(torch.int32), rd.view(torch.int32))
+    assert torch.equal(ki, ri)
+
+
+@pytest.mark.parametrize("s,n,m,tile,kind", TILE_CASES)
+def test_segment_walk(dev, s, n, m, tile, kind):
+    """P2's walk over the tile grid's segments: one launch, no host sync,
+    assign and remaining bitwise ``ref.greedy_walk`` over the same
+    segments."""
+    from repro_torch.kernels.budgeted_topk.kernel import (
+        density_sort_tiles_kernel, segment_walk_kernel)
+    from repro_torch.kernels.budgeted_topk.ref import (WALK_SYNCS,
+                                                       build_segments,
+                                                       greedy_walk)
+    v, c, b, e = _tile_inputs(dev, s, n, m, kind, seed=n + m)
+    kd, ki = density_sort_tiles_kernel(v, c, e, tile)
+    before, syncs = common.LAUNCHES["segment_walk"], WALK_SYNCS["greedy_walk"]
+    ka, kr = segment_walk_kernel(kd, ki, c, b, m)
+    assert common.LAUNCHES["segment_walk"] == before + 1
+    assert WALK_SYNCS["greedy_walk"] == syncs
+    ra, rr = greedy_walk(build_segments(v, c, e, tile), b, num_es=m,
+                         num_clients=n)
+    assert torch.equal(ka, ra)
+    assert torch.equal(kr.view(torch.int32), rr.view(torch.int32))
+    if kind == "zero-budget":
+        assert (ka < 0).all()
+    if kind == "dead-es":
+        assert not (ka == 0).any() and (ka >= 0).any()
+
+
+def test_budgeted_topk_past_the_limit_takes_the_tile_grid(dev):
+    """Past ``MAX_PAIRS`` pairs a seed the P2 selection is the tile grid
+    then the segment walk, one launch each and no host sync, bitwise the
+    plain version."""
+    from repro_torch.kernels.budgeted_topk.kernel import MAX_PAIRS
+    from repro_torch.kernels.budgeted_topk.ops import (WALK_SYNCS,
+                                                       budgeted_topk_walk)
+    from repro_torch.kernels.budgeted_topk.ref import budgeted_topk_ref
+    v, c, b, e = _topk_inputs(dev, 2, MAX_PAIRS // 12 + 1, 12, "random")
+    before = dict(common.LAUNCHES)
+    syncs = WALK_SYNCS["greedy_walk"]
+    ka, kr = budgeted_topk_walk(v, c, b, e)
+    assert common.LAUNCHES["budgeted_topk"] == before["budgeted_topk"]
+    for k in ("density_sort_tiles", "segment_walk"):
+        assert common.LAUNCHES[k] == before[k] + 1, k
+    assert WALK_SYNCS["greedy_walk"] == syncs
+    ra, rr = budgeted_topk_ref(v, c, b, e)
+    assert torch.equal(ka, ra)
+    assert torch.equal(kr.view(torch.int32), rr.view(torch.int32))
 
 
 def _p3_inputs(dev, s, n, m, kind, seed=0):
