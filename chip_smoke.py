@@ -87,17 +87,18 @@ Phases, in order; any failure exits non-zero before a result is printed:
 10. rwkv6-1.6b served the same way, 24 rwkv6_scan launches in its
     prefill, then the reference launcher's token-by-token state rebuild;
     its prefill against token-by-token steps in float32;
-11. the serve slice on the CPU against CUDA (qwen2, rwkv6 and mixtral at
-    ``reduced()``, float32; mixtral with a 96-token prompt against its
-    reduced window of 64, so that the flash kernel's window and the
-    decode mask both cut);
+11. the serve slice on the CPU against CUDA (every served model at
+    ``reduced()``, float32, ``LM_CPU_CASES``; mixtral with a 96-token
+    prompt against its reduced window of 64, so that the flash kernel's
+    window and the decode mask both cut);
 12. moe_router against its plain version at the mixtral prefill's
     (4096, 8, 2), a decode step's (8, 8, 2), a ragged (1000, 8, 2),
-    kimi-k2's width (4096, 384, 8), rows of exact ties (f32 and bf16),
-    rows whose probabilities underflow, rows with a non-finite logit
-    (indices 0..k-1 and NaN gates, as the plain version's), E = 32 and
-    33 (the two paths' edges), rows not 16 bytes long, T = 1, views
-    one row and one element in, and probabilities below 2^-117
+    kimi-k2's prefill (4096, 384, 8) and decode step (8, 384, 8), rows
+    of exact ties (f32 and bf16), rows whose probabilities underflow,
+    rows with a non-finite logit (indices 0..k-1 and NaN gates, as the
+    plain version's), E = 32 and 33 (the two paths' edges), rows not 16
+    bytes long, T = 1, views one row and one element in, and
+    probabilities below 2^-117
     (``ROUTER_CASES``); its ptxas registers and spills; timed as phase 3
     times;
 13. mixtral-8x22b served at full width and 8 of its 56 layers in bf16
@@ -235,9 +236,47 @@ Phases, in order; any failure exits non-zero before a result is printed:
     dense, 1 seed, 2 rounds (finite accuracy, participants, spend within
     budget, seconds, rounds/s, peak memory).
 
-Phases 4, 8, 9, 10, 13, 14, 15, 16, 17, 18 and 20 each zero the launch
-counts just before their run and read them just after; phase 19 just
-before and after each dispatch of the trial runner.
+21. flash_attention at the new models' prompt shapes against its plain
+    float32 version (``FLASH_TOL``), each timed beside SDPA and its plain
+    version with its bound: ``causal=False`` at the seamless encoder's
+    (8, 1024, 16, 16, 64) in bf16 and float32 (the flag's first use on
+    the main path), granite-20b's MQA (8, 512, 48, 1, 128),
+    qwen2.5-14b's group of 5 (8, 512, 40, 8, 128), granite-8b's (8, 512,
+    32, 8, 128), kimi-k2's (8, 512, 64, 8, 128), the seamless decoder's
+    causal prefill (8, 64, 16, 16, 64) (one tile of rows) and zamba2's
+    at its served prompt (8, 256, 32, 32, 64) and at (8, 512, 32, 32,
+    64);
+22. zamba2-1.2b at full width and depth in bf16 (``launch.serve.run``:
+    batch 8, 256-token prompts in chunks of 128, 32 greedy tokens): B4
+    launched 7 times in the prefill (one a shared-attention site); the
+    prompt's largest chunk decay must pass exp(88.72), where the
+    reference's chunked form is inf (R12), with finite logits; the
+    token-by-token rebuild's seconds; its prefill against token-by-token
+    steps in float32 (2 x 256) within ``STEP_TOL``;
+23. seamless-m4t-large-v2 at full width and depth in bf16 (24 encoder
+    and 24 decoder layers; 8 x 1024 frames, 64-token prompts, 32 greedy
+    tokens). The prefill encodes the frames once, so B4 launches 24 times
+    non-causal (the encoder) and 24 times causal (the decoder), each
+    flag gated; finite logits;
+24. paligemma-3b at full width and depth in bf16 (8 x (256 patches + 512
+    tokens), 32 greedy tokens): the prefix-LM mask at head dim 256 is not
+    B4's function, so B4 must not launch; finite logits; peak memory;
+25. granite-8b, qwen2.5-14b and granite-20b at full width and depth in
+    bf16, each freed before the next: B4 launched ``num_layers`` times in
+    each prefill, finite logits; granite-20b's prefill against its
+    decode steps (2 x 64) within ``STEP_TOL``;
+26. kimi-k2 at full width, 1 of its 61 layers, bf16: B6 at (4096, 384,
+    8) and (8, 384, 8) launched 32 times, B4 once; two prefills bitwise
+    equal (the pinned k = 8 combine); dropped assignments and peak
+    memory printed.
+
+In phases 22-26 every B4 and B6 launch of the measured run is recorded
+with its flags, dtype and shape; each must be a case that phase 21 or
+12 held against the plain version.
+
+Phases 4, 8, 9, 10, 13, 14, 15, 16, 17, 18, 20 and 22-26 each zero the
+launch counts just before their run and read them just after; phase 19
+just before and after each dispatch of the trial runner.
 
 The last three lines are the card's name and power limit, a JSON line
 of per-kernel numbers (with the launch floor), and ``{"ok": true,
@@ -286,7 +325,12 @@ STEP_TOL = {"qwen2-1.5b": 0.25, "rwkv6-1.6b": 2e-2,
             # 64 on an H100; a row whose last token took another expert
             # read 1.41-1.53); in float32 at 4 layers (measured 3.2e-5 at
             # 2 x 64 and 3.9e-5 at 8 x 64, no routing difference)
-            "mixtral-8x22b": 0.25, "mixtral-8x22b-f32": 1e-3}
+            "mixtral-8x22b": 0.25, "mixtral-8x22b-f32": 1e-3,
+            # zamba2-1.2b in float32, the chunked SSD form against its step
+            # form through 38 layers (measured 4.6e-5 at 2 x 256 on an
+            # H100); granite-20b in bf16 at 52 layers, as qwen2's (measured
+            # 0.117 at 2 x 64)
+            "zamba2-1.2b": 5e-4, "granite-20b": 0.25}
 # B6 against its plain version: gates from float32 softmaxes summed in
 # another order, values in [0, 1]; each row's sum; the probability gap
 # under which two experts' order is not decided by the plain version
@@ -1508,15 +1552,16 @@ def flash_views(dev, b, s, h, kv, d, dtype, seed):
             for a in flash_inputs(dev, b, s, h, kv, d, dtype, seed)]
 
 
-def flash_agrees(q, k, v, window, tol, what) -> float:
-    """B4 causal against the plain float32 version; the max abs error."""
+def flash_agrees(q, k, v, window, tol, what, causal=True) -> float:
+    """B4 (causal unless ``causal=False``) against the plain float32
+    version; the max abs error."""
     import torch
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_kernel
     from repro_torch.kernels.flash_attention.ref import attention_ref
     f32 = torch.float32
-    got = flash_attention_kernel(q, k, v, causal=True, window=window)
-    want = attention_ref(q.to(f32), k.to(f32), v.to(f32), causal=True,
+    got = flash_attention_kernel(q, k, v, causal=causal, window=window)
+    want = attention_ref(q.to(f32), k.to(f32), v.to(f32), causal=causal,
                          window=window)
     torch.cuda.synchronize()
     if not torch.isfinite(got).all():
@@ -1776,12 +1821,15 @@ def check_rwkv6_scan(dev):
 
 # -- phases 8-10: the serve slice at full width ------------------------------
 
-def serve_full_width(dev, cfg):
+def serve_full_width(dev, cfg, prompt_len: int = 512, recorder=None):
     """``launch.serve.run`` of ``cfg`` at full width (bf16, random weights
-    from seed 0): batch 8, a 512-token prompt, 32 greedy tokens, after
-    one short warm-up run. The launch counts are zeroed just before the
-    measured run and read just after it. Peak device memory is read
-    after the weights are drawn and over the two runs."""
+    from seed 0): batch 8, a ``prompt_len``-token prompt (and, for audio
+    or VLM configs, frames or patches the launcher draws from the seed),
+    32 greedy tokens, after one short warm-up run. The launch counts are
+    zeroed just before the measured run and read just after it; a
+    ``recorder`` context, when given, is open around the measured run
+    only. Peak device memory is read after the weights are drawn and
+    over the two runs."""
     import torch
     from repro_torch.kernels import common
     from repro_torch.launch import serve
@@ -1802,11 +1850,14 @@ def serve_full_width(dev, cfg):
     serve.run(cfg, batch=8, prompt_len=64, gen_len=2, seed=1, device=dev,
               params=params)
     torch.cuda.synchronize()
-    common.reset_launches()
-    res = serve.run(cfg, batch=8, prompt_len=512, gen_len=32, seed=0,
-                    device=dev, params=params)
-    torch.cuda.synchronize()
-    launches = dict(common.LAUNCHES)
+    with (recorder() if recorder else contextlib.nullcontext()) as records:
+        common.reset_launches()
+        res = serve.run(cfg, batch=8, prompt_len=prompt_len, gen_len=32,
+                        seed=0, device=dev, params=params)
+        torch.cuda.synchronize()
+        launches = dict(common.LAUNCHES)
+    if recorder:
+        launches["records"] = records
     mem = dict(init_peak_gb=init_peak / 1e9,
                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     for name, x in (("prefill", res.prefill_logits), ("decode",
@@ -1816,19 +1867,21 @@ def serve_full_width(dev, cfg):
     if tuple(res.tokens.shape) != (8, 32):
         fail(f"{arch}: tokens {tuple(res.tokens.shape)}")
     step_ms = res.decode_s / 31 * 1e3
-    print(f"  {arch}: prefill {res.prefill_s * 1e3:.2f} ms (8 x 512 "
-          f"tokens), decode {res.decode_tok_per_s:.2f} tok/s at batch 8 "
-          f"({step_ms:.2f} ms a step)"
+    print(f"  {arch}: prefill {res.prefill_s * 1e3:.2f} ms (8 x "
+          f"{prompt_len} tokens), decode {res.decode_tok_per_s:.2f} tok/s at "
+          f"batch 8 ({step_ms:.2f} ms a step)"
           + (f", state rebuild {res.rebuild_s * 1e3:.1f} ms" if
-             cfg.arch_type == "ssm" else "")
+             cfg.arch_type in ("ssm", "hybrid") else "")
           + f"; peak memory serving {mem['peak_gb']:.2f} GB")
-    print(f"    launches: {launches}")
+    print(f"    launches: "
+          f"{ {k: v for k, v in launches.items() if k != 'records'} }")
     print(f"    sample: {res.tokens[0, :12].tolist()}")
     return cfg, params, res, launches, mem
 
 
 def profile_serve(dev, cfg, params):
-    """One prefill (batch 8 x 512 tokens) and four decode steps of the
+    """One prefill (batch 8 x 512 tokens; the seamless phase's prompt over
+    its frames; paligemma's after its patches) and four decode steps of the
     full-width model under torch.profiler: wall time, summed kernel time,
     the device's busy share (kernel time over wall time) and the kernels
     that take the most device time."""
@@ -1836,16 +1889,23 @@ def profile_serve(dev, cfg, params):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import registry as R
     gen = torch.Generator(device=dev).manual_seed(2)
-    prompt = torch.randint(0, cfg.vocab_size, (8, 512), generator=gen,
-                           device=dev, dtype=torch.int32)
+    plen = SEAMLESS_PROMPT if cfg.arch_type == "audio" else 512
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (8, plen),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    for kind, name, n in (("audio", "frames", cfg.num_frames),
+                          ("vlm", "patches", cfg.num_patches)):
+        if cfg.arch_type == kind:
+            batch[name] = torch.randn((8, n, cfg.d_model), generator=gen,
+                                      device=dev).to(cfg.torch_dtype)
 
     def prefill():
-        state = R.init_serve_state(cfg, 8, 544, device=dev)
-        return R.prefill(params, cfg, {"tokens": prompt}, state)
+        state = R.init_serve_state(cfg, 8, plen + 32, device=dev)
+        return R.prefill(params, cfg, batch, state)
 
     logits, state = prefill()
-    if cfg.arch_type == "ssm":            # decode from a state at step 0
-        state = R.init_serve_state(cfg, 8, 544, device=dev)
+    if cfg.arch_type in ("ssm", "hybrid"):  # decode from a state at step 0
+        state = R.init_serve_state(cfg, 8, plen + 32, device=dev)
     tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
 
     def decode():
@@ -1875,12 +1935,12 @@ def profile_serve(dev, cfg, params):
                   f"{e.count // n:5d}x  {e.key[:80]}")
 
 
-def _serve_row(cfg, res, mem) -> dict:
-    row = dict(batch=8, prompt=512, generated=32, layers=cfg.num_layers,
-               prefill_ms=res.prefill_s * 1e3,
+def _serve_row(cfg, res, mem, prompt_len: int = 512) -> dict:
+    row = dict(batch=8, prompt=prompt_len, generated=32,
+               layers=cfg.num_layers, prefill_ms=res.prefill_s * 1e3,
                decode_tok_per_s=res.decode_tok_per_s,
                decode_step_ms=res.decode_s / 31 * 1e3, **mem)
-    if cfg.arch_type == "ssm":
+    if cfg.arch_type in ("ssm", "hybrid"):
         row["rebuild_ms"] = res.rebuild_s * 1e3
     return row
 
@@ -2044,14 +2104,15 @@ def prefill_vs_steps(dev, arch: str, dtype: str, batch: int,
 # -- phase 12: moe_router against its plain version --------------------------
 
 # (T, E, k, kind, dtype): the mixtral prefill's and a decode step's
-# shapes, a ragged T, kimi-k2's width, exact ties, underflowing rows;
-# rows with a non-finite logit; E = 32 (the widest a thread a row) and 33
-# (the narrowest a warp a row); rows not 16 bytes long; T = 1; views one
-# row in and one element in; probabilities below 2^-117, subnormal ones
-# among them
+# shapes, a ragged T, kimi-k2's prefill and decode step, exact ties,
+# underflowing rows; rows with a non-finite logit; E = 32 (the widest a
+# thread a row) and 33 (the narrowest a warp a row); rows not 16 bytes
+# long; T = 1; views one row in and one element in; probabilities below
+# 2^-117, subnormal ones among them
 ROUTER_CASES = (
     (4096, 8, 2, "normal", "float32"), (8, 8, 2, "normal", "float32"),
     (1000, 8, 2, "normal", "float32"), (4096, 384, 8, "normal", "float32"),
+    (8, 384, 8, "normal", "float32"),
     (4096, 8, 2, "normal", "bfloat16"), (1024, 8, 2, "ties", "float32"),
     (1024, 8, 2, "ties", "bfloat16"), (512, 384, 8, "ties", "bfloat16"),
     (64, 8, 2, "underflow", "float32"), (64, 384, 8, "underflow", "float32"),
@@ -3778,29 +3839,52 @@ def trials_phase(dev):
 
 # -- phase 11: the serve slice on CPU against CUDA ---------------------------
 
+# phase 11's models: (arch, prompt length); "kimi-k2-e16-k8" is kimi's
+# reduced() with 16 experts and top-8 (reduced() caps k at 2)
+LM_CPU_CASES = (("qwen2-1.5b", 64), ("rwkv6-1.6b", 64),
+                ("mixtral-8x22b", 96), ("zamba2-1.2b", 64),
+                ("seamless-m4t-large-v2", 64), ("paligemma-3b", 64),
+                ("granite-8b", 64), ("granite-20b", 64), ("qwen2.5-14b", 64),
+                ("kimi-k2-1t-a32b", 64), ("kimi-k2-e16-k8", 64))
+
+
 def lm_cpu_vs_cuda(dev):
-    """The three models at ``reduced()`` (float32, TF32 off): the same
-    parameters and prompt through ``launch.serve.run`` on the CPU (plain
-    versions) and on CUDA (the kernels). mixtral's 96-token prompt is
-    longer than its reduced window of 64, so B4's window and the decode
-    mask both cut."""
+    """Every served model at ``reduced()`` (float32, TF32 off): the same
+    parameters, prompt and (audio, VLM) frames or patches through
+    ``launch.serve.run`` on the CPU (plain versions) and on CUDA (the
+    kernels). mixtral's 96-token prompt is longer than its reduced window
+    of 64, so B4's window and the decode mask both cut; zamba2's 64
+    tokens are two chunks of 32; the seamless encoder runs B4 non-causal."""
+    import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import registry as R
     out = {}
-    for arch, plen in (("qwen2-1.5b", 64), ("rwkv6-1.6b", 64),
-                       ("mixtral-8x22b", 96)):
-        cfg = get_config(arch).reduced()
+    for arch, plen in LM_CPU_CASES:
+        if arch == "kimi-k2-e16-k8":
+            cfg = get_config("kimi-k2-1t-a32b").reduced()
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, num_experts=16, top_k=8))
+        else:
+            cfg = get_config(arch).reduced()
         params = R.init_params(cfg, 0, device="cpu")
         gen = torch.Generator().manual_seed(3)
         prompt = torch.randint(0, cfg.vocab_size, (4, plen), generator=gen,
                                dtype=torch.int32)
+        extra = {}
+        if cfg.arch_type == "audio":
+            extra["frames"] = torch.randn((4, cfg.num_frames, cfg.d_model),
+                                          generator=gen)
+        if cfg.arch_type == "vlm":
+            extra["patches"] = torch.randn((4, cfg.num_patches, cfg.d_model),
+                                           generator=gen)
         a = serve.run(cfg, gen_len=16, device="cpu", params=params,
-                      prompt=prompt)
+                      prompt=prompt, **extra)
         b = serve.run(cfg, gen_len=16, device=dev,
                       params=to_device(params, dev),
-                      prompt=prompt.to(dev))
+                      prompt=prompt.to(dev),
+                      **{k: v.to(dev) for k, v in extra.items()})
         gaps = {f: (getattr(a, f).float() - getattr(b, f).float().cpu())
                 .abs().max().item()
                 for f in ("prefill_logits", "logits", "step_logits")}
@@ -4203,6 +4287,345 @@ def mesh_phase(dev):
                       phase_s=time.perf_counter() - t0), main["launches"]
 
 
+# -- phases 21-26: the rest of the LM zoo -----------------------------------
+
+# B4 at the new models' prompt shapes: (what, (B, S, H, KV, D), causal,
+# dtype). The seamless encoder is the first non-causal use on the path
+FLASH_ZOO_CASES = (
+    ("seamless encoder", (8, 1024, 16, 16, 64), False, "bfloat16"),
+    ("seamless encoder", (8, 1024, 16, 16, 64), False, "float32"),
+    ("granite-20b MQA", (8, 512, 48, 1, 128), True, "bfloat16"),
+    ("qwen2.5-14b group of 5", (8, 512, 40, 8, 128), True, "bfloat16"),
+    ("granite-8b", (8, 512, 32, 8, 128), True, "bfloat16"),
+    ("kimi-k2", (8, 512, 64, 8, 128), True, "bfloat16"),
+    ("seamless decoder", (8, 64, 16, 16, 64), True, "bfloat16"),
+    ("zamba2 shared attention", (8, 256, 32, 32, 64), True, "bfloat16"),
+    ("zamba2 shared attention", (8, 512, 32, 32, 64), True, "bfloat16"))
+# the float32 overflow edge of the reference's exp(-cumsum log_w)
+EXP_F32_MAX = 88.72
+ZAMBA2_PROMPT = 256             # 2 of zamba2's chunks of 128 (512 doubles
+                                # the rebuild's ~30 s)
+ZAMBA2_F32_PROMPT = 256         # prefill against steps, float32
+SEAMLESS_PROMPT = 64
+KIMI_LAYERS = 1                 # of 61: 33.8 GB of experts, 4.7 GB embed/head
+
+
+def flash_zoo(dev) -> list:
+    """Phase 21: B4 at FLASH_ZOO_CASES against its plain float32 version on
+    the model layout's views, within FLASH_TOL; each timed (CUDA events,
+    L2 flushed) beside SDPA on contiguous tensors and its plain version,
+    with its bound (bytes at 3.35 TB/s, or the products at the bf16
+    tensor-core or float32 rate)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_kernel
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    rows = []
+    for n, (what, (b, s, h, kv, d), causal, dt) in enumerate(
+            FLASH_ZOO_CASES):
+        dtype = getattr(torch, dt)
+        tol = FLASH_TOL["bf16" if dtype == torch.bfloat16 else "f32"]
+        q, k, v = flash_views(dev, b, s, h, kv, d, dtype, 40 + n)
+        label = (f"{dt} {'causal' if causal else 'non-causal'} at {what} "
+                 f"{(b, s, h, kv, d)}")
+        err = flash_agrees(q, k, v, 0, tol, label, causal=causal)
+        ms = event_ms(lambda: flash_attention_kernel(q, k, v,
+                                                     causal=causal))
+        plain = event_ms(lambda: attention_ref(q, k, v, causal=causal),
+                         iters=5)
+        qc, kc, vc = (a.contiguous() for a in (q, k, v))
+        lib = event_ms(lambda: F.scaled_dot_product_attention(
+            qc, kc, vc, is_causal=causal, enable_gqa=True))
+        size = q.element_size()
+        nbytes = size * (2 * b * h * s * d + 2 * b * kv * s * d)
+        pairs = s * (s + 1) // 2 if causal else s * s
+        ops = 4 * b * h * d * pairs
+        bnd, by = lm_bound_ms(nbytes, ops, BF16_OPS_PER_S
+                              if dtype == torch.bfloat16
+                              else FP32_OPS_PER_S)
+        print(f"  flash_attention {label}: kernel {ms * 1e3:.2f} us, SDPA "
+              f"{lib * 1e3:.2f} us ({lib / ms:.3f}x the kernel's speed), "
+              f"plain {plain * 1e3:.2f} us, bound {bnd * 1e3:.3f} us ({by}; "
+              f"{bnd / ms:.3f} of it), {ops / ms / 1e9:.1f} TFLOP/s")
+        rows.append(dict(case=what, shape=[b, s, h, kv, d], causal=causal,
+                         dtype=dt, max_abs_err=err, ms=ms, plain_ms=plain,
+                         library_ms=lib, bound_ms=bnd, bound_by=by))
+    print(f"  flash_attention zoo timed; SM clock, power: {sm_clock()}")
+    return rows
+
+
+@contextlib.contextmanager
+def recorded_kernels():
+    """For the block's duration every B4 launch also appends
+    ("flash_attention", causal, window, dtype, (B, S, H, KV, D)) to the
+    yielded list, and every B6 launch ("moe_router", dtype, (T, E, k))."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.moe_router import kernel as mr
+    calls = []
+    flash, router = fa.flash_attention_kernel, mr.moe_router_kernel
+
+    def flash_rec(q, k, v, causal=True, window=0, sm_scale=0.0):
+        b, h, s, d = q.shape
+        calls.append(("flash_attention", bool(causal), int(window),
+                      str(q.dtype)[6:], (b, s, h, k.shape[1], d)))
+        return flash(q, k, v, causal=causal, window=window,
+                     sm_scale=sm_scale)
+
+    def router_rec(logits, top_k):
+        calls.append(("moe_router", str(logits.dtype)[6:],
+                      (*logits.shape, top_k)))
+        return router(logits, top_k)
+
+    fa.flash_attention_kernel, mr.moe_router_kernel = flash_rec, router_rec
+    try:
+        yield calls
+    finally:
+        fa.flash_attention_kernel, mr.moe_router_kernel = flash, router
+
+
+# the launches phases 21 and 12 hold against the plain version, as
+# recorded_kernels notes them
+CHECKED_LAUNCHES = (
+    {("flash_attention", causal, 0, dt, shape)
+     for _, shape, causal, dt in FLASH_ZOO_CASES}
+    | {("moe_router", dt, (t, e, k)) for t, e, k, _, dt in ROUTER_CASES})
+
+
+def launches_checked(launches, arch) -> list:
+    """Pops the measured run's B4 and B6 records from ``launches``; fails
+    if one ran at a case that no phase held against its plain version."""
+    records = launches.pop("records")
+    kinds = sorted(set(records), key=str)
+    unchecked = [r for r in kinds if r not in CHECKED_LAUNCHES]
+    if unchecked:
+        fail(f"{arch}: launched at cases no phase checked: {unchecked}")
+    print(f"  {arch}: {len(records)} B4/B6 launches at {len(kinds)} "
+          f"cases, each checked in phase 21 or 12: {kinds}")
+    return records
+
+
+@contextlib.contextmanager
+def recorded_chunk_decays():
+    """For the block's duration each call of the inclusive chunked
+    recurrence also appends its largest chunk decay -sum(log_w) over a
+    chunk: the exponent the reference's form (exp(-cumsum log_w), its
+    ``layers.py:245``) would scale k by."""
+    from repro_torch.models import layers
+    out = []
+    real = layers._inclusive_chunked
+
+    def recording(r, k, v, log_w, chunk, init_state=None):
+        t = log_w.shape[2] // chunk * chunk
+        out.append(-log_w[:, :, :t].unflatten(2, (-1, chunk)).sum(3).min())
+        return real(r, k, v, log_w, chunk, init_state)
+
+    layers._inclusive_chunked = recording
+    try:
+        yield out
+    finally:
+        layers._inclusive_chunked = real
+
+
+def free_memory() -> None:
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _finite_or_fail(res, arch) -> None:
+    import torch
+    for name in ("prefill_logits", "logits", "step_logits"):
+        if not torch.isfinite(getattr(res, name)).all():
+            fail(f"{arch}: non-finite {name}")
+
+
+def zamba2_full_width(dev, profile: bool = False) -> dict:
+    """Phase 22: zamba2-1.2b at full width and depth (38 Mamba2 layers, 7
+    shared-attention sites), bf16, through ``launch.serve.run``: batch 8,
+    a ZAMBA2_PROMPT-token prompt (chunks of 128), 32 greedy tokens, B4
+    launched 7 times in the prefill, the rebuild's seconds. The prompt's
+    chunk decays are read in one more prefill: they must pass the float32
+    edge where the reference's form is inf (R12) while the port's logits
+    stay finite. Then the prefill against token-by-token steps in
+    float32 within STEP_TOL."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry as R
+    free_memory()
+    cfg, params, res, launches, mem = serve_full_width(
+        dev, get_config("zamba2-1.2b"), prompt_len=ZAMBA2_PROMPT,
+        recorder=recorded_kernels)
+    launches_checked(launches, "zamba2-1.2b")
+    if launches["flash_attention"] != 7:
+        fail(f"zamba2: flash_attention launched "
+             f"{launches['flash_attention']} times in the prefill, not 7")
+    _finite_or_fail(res, "zamba2-1.2b")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab_size, (8, ZAMBA2_PROMPT),
+                           generator=gen, device=dev, dtype=torch.int32)
+    with recorded_chunk_decays() as decays:
+        logits, _ = R.prefill(params, cfg, {"tokens": prompt},
+                              R.init_serve_state(cfg, 8, ZAMBA2_PROMPT,
+                                                 device=dev))
+    peak = max(float(x) for x in decays)
+    print(f"  zamba2 prefill: largest chunk decay over {len(decays)} layers "
+          f"exp({peak:.1f}) (the reference's form is inf past "
+          f"exp({EXP_F32_MAX})); logits finite: "
+          f"{bool(torch.isfinite(logits).all())}")
+    if peak <= EXP_F32_MAX:
+        fail(f"zamba2: no chunk of the prompt passes the reference's "
+             f"overflow edge (exp({peak:.1f}))")
+    a, b = res.prefill_logits[:, -1].float(), res.logits[:, -1].float()
+    gap = (a - b).abs().max().item()
+    print(f"  zamba2 bf16: prefill (chunked) against rebuild (steps) last "
+          f"logits: max abs gap {gap:.4f} on values up to "
+          f"{b.abs().max().item():.2f}; argmax agrees on "
+          f"{int((a.argmax(-1) == b.argmax(-1)).sum())} of 8 (not gated: "
+          f"the float32 check below is); rebuild of {ZAMBA2_PROMPT} tokens "
+          f"{res.rebuild_s:.2f} s")
+    row = _serve_row(cfg, res, mem, ZAMBA2_PROMPT)
+    row.update(launches=launches, chunk_decay_max=peak,
+               prefill_vs_rebuild_bf16=gap, rebuild_s=res.rebuild_s)
+    if profile:
+        profile_serve(dev, cfg, params)
+    del params
+    free_memory()
+    row["prefill_vs_steps"] = prefill_vs_steps(
+        dev, "zamba2-1.2b", "float32", 2, ZAMBA2_F32_PROMPT,
+        STEP_TOL["zamba2-1.2b"])
+    return row
+
+
+def seamless_full_width(dev, profile: bool = False) -> dict:
+    """Phase 23: seamless-m4t-large-v2 at full width and depth (24 encoder
+    and 24 decoder layers), bf16: 8 x 1024 frames (drawn by the launcher
+    from the seed), SEAMLESS_PROMPT-token prompts, 32 greedy tokens. The
+    frames are encoded once, so the prefill launches B4 24 times
+    non-causal (the encoder) and 24 times causal (the decoder's
+    self-attention); decode attends in plain torch. R13: decoding starts
+    at position 0, as in the reference."""
+    from repro_torch.configs import get_config
+    free_memory()
+    cfg = get_config("seamless-m4t-large-v2")
+    cfg, params, res, launches, mem = serve_full_width(
+        dev, cfg, prompt_len=SEAMLESS_PROMPT, recorder=recorded_kernels)
+    calls = launches_checked(launches, "seamless-m4t-large-v2")
+    nc = sum(1 for r in calls if r[0] == "flash_attention" and not r[1])
+    ca = sum(1 for r in calls if r[0] == "flash_attention" and r[1])
+    print(f"  seamless prefill: flash_attention {nc} non-causal, {ca} "
+          f"causal")
+    if (nc, ca) != (cfg.encoder_layers, cfg.num_layers) or \
+            launches["flash_attention"] != nc + ca:
+        fail(f"seamless: flash_attention {nc} non-causal and {ca} causal "
+             f"({launches['flash_attention']} counted), not "
+             f"{cfg.encoder_layers} and {cfg.num_layers}")
+    _finite_or_fail(res, "seamless-m4t-large-v2")
+    row = _serve_row(cfg, res, mem, SEAMLESS_PROMPT)
+    row.update(frames=cfg.num_frames, launches=launches,
+               non_causal=nc, causal=ca)
+    if profile:
+        profile_serve(dev, cfg, params)
+    del params
+    return row
+
+
+def paligemma_full_width(dev, profile: bool = False) -> dict:
+    """Phase 24: paligemma-3b at full width and depth, bf16: 8 x (256
+    patches + 512 tokens), 32 greedy tokens. The prefix-LM mask at head
+    dim 256 is not B4's function: the prompt attends in plain torch, so
+    B4 must not launch."""
+    from repro_torch.configs import get_config
+    free_memory()
+    cfg, params, res, launches, mem = serve_full_width(
+        dev, get_config("paligemma-3b"), recorder=recorded_kernels)
+    launches_checked(launches, "paligemma-3b")
+    if launches["flash_attention"]:
+        fail(f"paligemma: flash_attention launched "
+             f"{launches['flash_attention']} times")
+    _finite_or_fail(res, "paligemma-3b")
+    row = _serve_row(cfg, res, mem)
+    row.update(patches=cfg.num_patches, launches=launches)
+    if profile:
+        profile_serve(dev, cfg, params)
+    del params
+    return row
+
+
+def dense_zoo_full_width(dev, profile: bool = False) -> dict:
+    """Phase 25: granite-8b, qwen2.5-14b and granite-20b at full width and
+    depth, bf16, each freed before the next (granite-20b's 52 layers hold
+    ~56 GB, so it runs last): B4 launched once a layer in each prefill;
+    granite-20b's prefill against its decode steps within STEP_TOL."""
+    from repro_torch.configs import get_config
+    out = {}
+    for arch in ("granite-8b", "qwen2.5-14b", "granite-20b"):
+        free_memory()
+        cfg, params, res, launches, mem = serve_full_width(
+            dev, get_config(arch), recorder=recorded_kernels)
+        launches_checked(launches, arch)
+        if launches["flash_attention"] != cfg.num_layers:
+            fail(f"{arch}: flash_attention launched "
+                 f"{launches['flash_attention']} times in a prefill of "
+                 f"{cfg.num_layers} layers")
+        _finite_or_fail(res, arch)
+        out[arch] = _serve_row(cfg, res, mem)
+        if profile:
+            profile_serve(dev, cfg, params)
+        if arch == "granite-20b":
+            out[arch]["prefill_vs_steps"] = prefill_vs_steps(
+                dev, arch, "bfloat16", 2, 64, STEP_TOL[arch],
+                params=params)
+        del params
+    free_memory()
+    return out
+
+
+def kimi_full_width(dev, profile: bool = False) -> dict:
+    """Phase 26: kimi-k2 at full width, KIMI_LAYERS of its 61 layers, bf16,
+    through ``launch.serve.run`` (batch 8, 512-token prompts, 32 greedy
+    tokens): B6 at (4096, 384, 8) in the prefill and (8, 384, 8) a step,
+    32 launches; B4 once. Two more prefills of one prompt must be bitwise
+    equal (the pinned k = 8 combine on the card); the assignments dropped
+    past capacity and peak memory are printed."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry as R
+    free_memory()
+    cfg = dataclasses.replace(get_config("kimi-k2-1t-a32b"),
+                              num_layers=KIMI_LAYERS)
+    cfg, params, res, launches, mem = serve_full_width(
+        dev, cfg, recorder=recorded_kernels)
+    launches_checked(launches, "kimi-k2")
+    want = cfg.num_layers * 32
+    if launches["moe_router"] != want or \
+            launches["flash_attention"] != cfg.num_layers:
+        fail(f"kimi: moe_router {launches['moe_router']} (want {want}), "
+             f"flash_attention {launches['flash_attention']} (want "
+             f"{cfg.num_layers})")
+    _finite_or_fail(res, "kimi-k2")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    prompt = torch.randint(0, cfg.vocab_size, (8, 512), generator=gen,
+                           device=dev, dtype=torch.int32)
+    twice = [R.prefill(params, cfg, {"tokens": prompt},
+                       R.init_serve_state(cfg, 8, 512, device=dev))[0]
+             for _ in range(2)]
+    same = torch.equal(twice[0].view(torch.int16), twice[1].view(torch.int16))
+    print(f"  kimi prefill twice: bitwise equal {same}")
+    if not same:
+        fail("kimi: two prefills of one prompt differ (the k = 8 combine)")
+    row = _serve_row(cfg, res, mem)
+    row.update(launches=launches, dropped=prefill_drops(dev, cfg, params),
+               prefills_bitwise=same)
+    if profile:
+        profile_serve(dev, cfg, params)
+    del params, twice
+    free_memory()
+    return row
+
+
 def to_device(tree, dev):
     if isinstance(tree, dict):
         return {k: to_device(v, dev) for k, v in tree.items()}
@@ -4360,6 +4783,29 @@ def main() -> int:
     rows += mesh_rows
     for r in mesh_rows:
         print_row(r)
+
+    t_zoo = time.perf_counter()
+    print("phase 21: flash_attention at the new models' shapes (the seamless "
+          "encoder non-causal, granite-20b's MQA, qwen2.5-14b's group of 5, "
+          "zamba2's)")
+    serve_rows["flash_zoo"] = flash_zoo(dev)
+    print(f"phase 22: zamba2-1.2b serve at full width (launch.serve.run, "
+          f"{ZAMBA2_PROMPT}-token prompts)")
+    serve_rows["zamba2-1.2b"] = zamba2_full_width(dev, profile)
+    print("phase 23: seamless-m4t-large-v2 serve at full width "
+          "(launch.serve.run, 8 x 1024 frames)")
+    serve_rows["seamless-m4t-large-v2"] = seamless_full_width(dev, profile)
+    print("phase 24: paligemma-3b serve at full width (launch.serve.run, 256 "
+          "patches + 512 tokens)")
+    serve_rows["paligemma-3b"] = paligemma_full_width(dev, profile)
+    print("phase 25: granite-8b, qwen2.5-14b, granite-20b serve at full "
+          "width (launch.serve.run)")
+    serve_rows.update(dense_zoo_full_width(dev, profile))
+    print(f"phase 26: kimi-k2 serve at full width, {KIMI_LAYERS} of 61 "
+          f"layers (launch.serve.run)")
+    serve_rows["kimi-k2-1t-a32b"] = kimi_full_width(dev, profile)
+    serve_rows["zoo_phases_s"] = time.perf_counter() - t_zoo
+    print(f"  phases 21-26 in {serve_rows['zoo_phases_s']:.1f} s")
 
     # each kernel's launches on its own main path: B1-B3 and Random's
     # scan the HFL runs of phase 4 (three policies), P3's walk the gated

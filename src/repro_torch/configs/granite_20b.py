@@ -1,0 +1,14 @@
+"""Granite-20B — llama-arch, code, MQA [arXiv:2405.04324]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-20b",
+    arch_type="dense",
+    num_layers=52,
+    d_model=6144,
+    num_heads=48,
+    num_kv_heads=1,         # MQA
+    d_ff=24576,
+    vocab_size=49152,
+    source="arXiv:2405.04324",
+)

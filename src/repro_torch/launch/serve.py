@@ -1,13 +1,15 @@
 """Serving launcher: batched autoregressive decoding, the counterpart of
 the reference's ``launch/serve.py``.
 
-    python -m repro_torch.launch.serve --arch qwen2-1.5b --device cpu
+    python -m repro_torch.launch.serve --arch zamba2-1.2b --device cpu
     python -m repro_torch.launch.serve --arch rwkv6-1.6b   # on CUDA
 
-The command line runs the ``reduced()`` config, as the reference's does:
-prefill of a random prompt, for recurrent archs a token-by-token rebuild
-of the state over the prompt, then a greedy decode loop. It prints the
-prefill time and the decode rate. ``run`` carries the flow for any
+``--arch`` takes the reference's ten ids. The command line runs the
+``reduced()`` config, as the reference's does: prefill of a random
+prompt (with random frame embeddings for ``audio`` and patch embeddings
+for ``vlm``), for recurrent archs (``ssm``, ``hybrid``) a token-by-token
+rebuild of the state over the prompt, then a greedy decode loop. It
+prints the prefill time and the decode rate. ``run`` carries the flow for any
 config (the registry functions take any), which is how a full-width
 model is driven.
 """
@@ -51,23 +53,36 @@ def _sync(device: torch.device) -> None:
 def run(cfg: ModelConfig, batch: int = 4, prompt_len: int = 32,
         gen_len: int = 32, seed: int = 0, device=None,
         params: Optional[dict] = None,
-        prompt: Optional[torch.Tensor] = None) -> ServeResult:
+        prompt: Optional[torch.Tensor] = None,
+        frames: Optional[torch.Tensor] = None,
+        patches: Optional[torch.Tensor] = None) -> ServeResult:
     """Prefill a (batch, prompt_len) prompt, then decode gen_len tokens
-    greedily. ``params`` and ``prompt`` default to random ones from
-    ``seed``."""
+    greedily. ``params``, ``prompt`` and, for ``audio``, ``frames``
+    (batch, num_frames, d_model) or, for ``vlm``, ``patches`` (batch,
+    num_patches, d_model) default to random ones from ``seed`` (one
+    ``torch.Generator``, in that order; standard normal embeddings in the
+    model dtype, as the reference's launcher draws them)."""
     dev = resolve_device(device)
     if params is None:
         params = R.init_params(cfg, seed, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     if prompt is None:
-        gen = torch.Generator(device=dev).manual_seed(seed)
         prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                                generator=gen, device=dev, dtype=torch.int32)
     batch, prompt_len = prompt.shape
+    inputs = {"tokens": prompt}
+    for kind, name, given, n in (("audio", "frames", frames, cfg.num_frames),
+                                 ("vlm", "patches", patches,
+                                  cfg.num_patches)):
+        if cfg.arch_type == kind:
+            inputs[name] = given if given is not None else torch.randn(
+                (batch, n, cfg.d_model), generator=gen, device=dev
+            ).to(cfg.torch_dtype)
     max_len = prompt_len + gen_len
     state = R.init_serve_state(cfg, batch, max_len, device=dev)
     _sync(dev)
     t0 = time.perf_counter()
-    prefill_logits, state = R.prefill(params, cfg, {"tokens": prompt}, state)
+    prefill_logits, state = R.prefill(params, cfg, inputs, state)
     logits = prefill_logits
     _sync(dev)
     prefill_s = time.perf_counter() - t0

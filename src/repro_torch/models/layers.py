@@ -9,7 +9,8 @@ Conventions, as in the reference:
   * norms and softmax run in float32, matmuls in the config dtype.
 
 Prompt attention goes through the flash attention kernel and the RWKV6
-recurrence through the WKV scan kernel (``repro_torch/kernels``).
+recurrence through the WKV scan kernel (``repro_torch/kernels``); the
+Mamba2 (inclusive) recurrence is torch ops.
 """
 from __future__ import annotations
 
@@ -26,19 +27,41 @@ from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
 # init helpers (the reference's scales; torch's numbers, not JAX's)
 
 
+# a float32 draw above this many elements is made in slices along the
+# leading axis (kimi-k2's (384, 7168, 2048) expert stacks would need a
+# 22.5 GB float32 temporary beside their 11.3 GB of bf16); smaller draws,
+# every other config's, are made whole, as before
+SLICE_ELEMS = 1 << 30
+
+
+def _normal(gen: torch.Generator, shape, scale: float, dtype,
+            device) -> torch.Tensor:
+    """N(0, scale^2) in ``dtype``, drawn in float32 and rounded once."""
+    n = math.prod(shape)
+    if n <= SLICE_ELEMS or len(shape) < 2:
+        x = torch.randn(shape, generator=gen, device=device)
+        return x.mul_(scale).to(dtype)      # in place: one float32 temporary
+    out = torch.empty(shape, dtype=dtype, device=device)
+    step = max(1, (SLICE_ELEMS // 4) // (n // shape[0]))
+    for i in range(0, shape[0], step):
+        part = out[i:i + step]
+        x = torch.randn(part.shape, generator=gen, device=device)
+        part.copy_(x.mul_(scale))
+        del x
+    return out
+
+
 def dense_init(gen: torch.Generator, shape, scale: Optional[float] = None,
                dtype=torch.float32, device=None) -> torch.Tensor:
     fan_in = shape[0] if len(shape) >= 2 else 1
     if scale is None:
         scale = 1.0 / math.sqrt(fan_in)
-    x = torch.randn(shape, generator=gen, device=device)
-    return x.mul_(scale).to(dtype)      # in place: one float32 temporary
+    return _normal(gen, shape, scale, dtype, device)
 
 
 def embed_init(gen: torch.Generator, shape, dtype=torch.float32,
                device=None) -> torch.Tensor:
-    x = torch.randn(shape, generator=gen, device=device)
-    return x.mul_(0.02).to(dtype)
+    return _normal(gen, shape, 0.02, dtype, device)
 
 
 def stack_layers(make_layer, n: int) -> dict:
@@ -59,6 +82,8 @@ def stack_layers(make_layer, n: int) -> dict:
             else:
                 dst[k][i].copy_(v)
 
+    if n == 1:          # a view of the one layer, no second copy
+        return _tree_map(lambda t: t.unsqueeze(0), make_layer())
     out = None
     for i in range(n):
         layer = make_layer()
@@ -69,12 +94,15 @@ def stack_layers(make_layer, n: int) -> dict:
     return out
 
 
-def layer_params(params: dict, i: int) -> dict:
-    """Layer i's parameters: views into the stacked ``params["layers"]``."""
-    def pick(t):
-        return {k: pick(v) for k, v in t.items()} if isinstance(t, dict) \
-            else t[i]
-    return pick(params["layers"])
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def layer_params(params: dict, i: int, key: str = "layers") -> dict:
+    """Layer i's parameters: views into the stacked ``params[key]``."""
+    return _tree_map(lambda t: t[i], params[key])
 
 
 # ---------------------------------------------------------------------------
@@ -198,10 +226,11 @@ def init_attention(gen, d_model: int, num_heads: int, num_kv_heads: int,
 def attention_block(p: dict, x: torch.Tensor, *, num_heads: int,
                     num_kv_heads: int, head_dim: int, rope_theta: float,
                     positions: torch.Tensor,
-                    mask: Optional[torch.Tensor] = None, window: int = 0,
+                    mask: Optional[torch.Tensor] = None, causal: bool = True,
+                    window: int = 0,
                     kv_cache: Optional[Tuple[torch.Tensor,
                                              torch.Tensor]] = None,
-                    cache_positions: Optional[torch.Tensor] = None,
+                    cache_positions: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """Self-attention.
 
@@ -209,12 +238,15 @@ def attention_block(p: dict, x: torch.Tensor, *, num_heads: int,
     ``cache_positions`` (B, S), in place (the reference returns a new
     cache; writing in place saves a copy of the whole cache a step).
 
-    With ``mask=None`` the sequence attends causally to its own S
-    positions, limited to ``window`` when it is > 0, through the flash
-    attention kernel: the prompt of a prefill (whose cache slots past S
-    are unwritten and masked, so they add exactly 0) or a training
-    forward. With a mask, attention runs in plain torch over the whole
-    cache (decode) or the sequence.
+    With ``mask=None`` the sequence attends to its own S positions
+    through the flash attention kernel: causally, limited to ``window``
+    when it is > 0, or with ``causal=False`` to every position (the
+    encoder's bidirectional attention, which the reference asks for with
+    ``mask=None``; here ``mask=None`` alone means causal). That covers
+    the prompt of a prefill (whose cache slots past S are unwritten and
+    masked, so they add exactly 0) and a training forward. With a mask,
+    attention runs in plain torch over the whole cache (decode, the VLM
+    prefill) or, with no cache, over the sequence's own positions.
     """
     b, s, _ = x.shape
     q = x @ p["wq"]
@@ -235,12 +267,12 @@ def attention_block(p: dict, x: torch.Tensor, *, num_heads: int,
         cpos = cache_positions.long()
         ck[bidx, cpos] = k.to(ck.dtype)
         cv[bidx, cpos] = v.to(cv.dtype)
-        if mask is None:
-            k, v = k.to(ck.dtype), v.to(cv.dtype)
-        else:
+        if mask is not None:
             k, v = ck, cv
+        else:
+            k, v = k.to(ck.dtype), v.to(cv.dtype)
     if mask is None:
-        out = flash_attention(q, k, v, causal=True, window=window)
+        out = flash_attention(q, k, v, causal=causal, window=window)
     else:
         out = gqa_attention(q, k, v, mask)
     return out.reshape(b, s, num_heads * head_dim) @ p["wo"]
@@ -264,33 +296,38 @@ def mlp_block(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# linear recurrence (the RWKV6 WKV; the Mamba2 SSD form waits for its model)
+# linear recurrence (the RWKV6 WKV and the Mamba2 SSD form)
 #
-# State C in R^{dk x dv}: C_t = diag(w_t) C_{t-1} + k_t v_t^T. Exclusive
-# (RWKV6) query: y_t = r_t . C_{t-1} + (r_t . (u o k_t)) v_t. The
-# reference's inclusive (Mamba2) query, y_t = r_t . C_t, selected by
-# u=None, raises until zamba2 is ported.
-
-
-def _exclusive_only(u) -> None:
-    if u is None:
-        raise NotImplementedError("the inclusive (Mamba2) recurrence is "
-                                  "not ported yet")
+# State C in R^{dk x dv}: C_t = diag(w_t) C_{t-1} + k_t v_t^T, w_t in (0, 1].
+# Two query conventions, as in the reference:
+#   * exclusive (RWKV6), u given: y_t = r_t . C_{t-1} + (r_t . (u o k_t)) v_t,
+#     through the WKV scan kernel;
+#   * inclusive (Mamba2), u=None: y_t = r_t . C_t, in torch ops (the
+#     reference computes it outside any Pallas kernel).
 
 
 def chunked_linear_recurrence(r, k, v, log_w, chunk: int,
-                              u: Optional[torch.Tensor] = None):
-    """r, k, log_w (B, H, T, dk); v (B, H, T, dv); log_w <= 0; u (H, dk).
+                              u: Optional[torch.Tensor] = None,
+                              init_state: Optional[torch.Tensor] = None):
+    """r, k (B, H, T, dk); v (B, H, T, dv); log_w <= 0, (B, H, T, dk) or
+    (B, H, T, 1) for a decay shared by the state's rows (Mamba2's scalar
+    per head); u (H, dk); init_state (B, H, dk, dv). Returns y (B, H, T,
+    dv) and the final state (B, H, dk, dv), float32.
 
-    The exclusive form with ``u`` from a zero state (the reference's
-    ``init_state=None``), which is what the WKV scan kernel computes, in
-    its own chunks of 64 (bf16) or sequentially (float32); ``chunk`` is
-    only the reference's contract: T a multiple of ``chunk``. On CUDA the
-    (B, H, T, d) views of the model's (B, T, H, d) tensors go in without
-    a copy and y comes back as the (B, H, T, dv) view of a (B, T, H, dv)
-    tensor. Returns y and the final state (B, H, dk, dv), float32.
+    With ``u`` (exclusive) T must be a multiple of ``chunk``, the
+    reference's contract; the WKV scan kernel runs it from a zero state,
+    in its own chunks of 64 (bf16) or sequentially (float32). On CUDA the
+    (B, H, T, d) views of the model's (B, T, H, d) tensors go in without a
+    copy and y comes back as the (B, H, T, dv) view of a (B, T, H, dv)
+    tensor.
+
+    With ``u=None`` (inclusive) see ``_inclusive_chunked``: any T, from
+    ``init_state`` or zero.
     """
-    _exclusive_only(u)
+    if u is None:
+        return _inclusive_chunked(r, k, v, log_w, chunk, init_state)
+    if init_state is not None:
+        raise ValueError("the exclusive form runs from a zero state")
     t = r.shape[2]
     if t % chunk:
         raise ValueError(f"sequence length {t} is not a multiple of the "
@@ -298,17 +335,69 @@ def chunked_linear_recurrence(r, k, v, log_w, chunk: int,
     return rwkv6_scan(r, k, v, log_w, u)
 
 
+def _inclusive_chunked(r, k, v, log_w, chunk: int, init_state=None):
+    """The inclusive form in chunks of ``chunk`` steps, written so that no
+    factor exceeds 1. The reference (``layers.py:245``) scales k by
+    exp(-cumsum log_w) within a chunk, which is inf in float32 once the
+    decays of a chunk sum below -88.7: zamba2's chunk of 128 at its
+    initial dt = softplus(0) already reaches it (R12). Here, with
+    lcum the inclusive cumulative log decay within a chunk and ltot its
+    last value:
+      * within a chunk, source s reaches query t >= s with exp(lcum_t -
+        lcum_s), a difference of two cumulative sums (a segment sum);
+      * the chunk's summary is sum_s exp(ltot - lcum_s) k_s v_s^T;
+      * the incoming state reaches query t with exp(lcum_t) and the next
+        chunk with exp(ltot).
+    A ragged tail is padded with k = 0, log_w = 0 steps, which leave the
+    state as it is. Float32 throughout."""
+    f32 = torch.float32
+    b, h, t, dk = r.shape
+    dv = v.shape[-1]
+    nc = -(-t // chunk)
+    pad = nc * chunk - t
+    r_, k_, v_, lw = (a.to(f32) for a in (r, k, v, log_w))
+    if pad:
+        r_, k_, v_, lw = (F.pad(a, (0, 0, 0, pad)) for a in (r_, k_, v_, lw))
+    r_, k_, v_, lw = (a.reshape(b, h, nc, chunk, a.shape[-1])
+                      for a in (r_, k_, v_, lw))
+    lcum = torch.cumsum(lw, dim=3)                     # (b, h, nc, C, dw)
+    ltot = lcum[:, :, :, -1:]                          # (b, h, nc, 1, dw)
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=r.device).tril()
+    # exp(lcum_t - lcum_s) for s <= t, else 0: (b, h, nc, C, C, dw)
+    seg = lcum[:, :, :, :, None] - lcum[:, :, :, None]
+    decay = torch.exp(seg.masked_fill(~tri[:, :, None], -math.inf))
+    if lw.shape[-1] == 1:
+        scores = (r_ @ k_.transpose(-1, -2)) * decay[..., 0]
+    else:
+        scores = torch.einsum("bhntd,bhntsd,bhnsd->bhnts", r_, decay, k_)
+    y = scores @ v_                                    # (b, h, nc, C, dv)
+    summ = (k_ * torch.exp(ltot - lcum)).transpose(-1, -2) @ v_
+    carry = torch.exp(ltot[:, :, :, 0])                # (b, h, nc, dw)
+    q_in = r_ * torch.exp(lcum)                        # (b, h, nc, C, dk)
+    state = (torch.zeros((b, h, dk, dv), dtype=f32, device=r.device)
+             if init_state is None else init_state.to(f32))
+    ys = []
+    for n in range(nc):
+        ys.append(y[:, :, n] + q_in[:, :, n] @ state)
+        state = carry[:, :, n, :, None] * state + summ[:, :, n]
+    y = torch.stack(ys, dim=2).reshape(b, h, nc * chunk, dv)
+    return y[:, :, :t], state
+
+
 def linear_recurrence_step(r, k, v, log_w, state,
                            u: Optional[torch.Tensor] = None):
-    """One token (decode), exclusive: the old state is queried, plus the
-    u bonus. r, k, log_w (B, H, dk); v (B, H, dv); state (B, H, dk, dv).
-    Returns y (B, H, dv) and the new state, float32."""
-    _exclusive_only(u)
+    """One token (decode). r, k (B, H, dk); log_w (B, H, dk) or (B, H,
+    1); v (B, H, dv); state (B, H, dk, dv). Exclusive with ``u`` (the old
+    state is queried, plus the u bonus), inclusive without (the new state
+    is queried). Returns y (B, H, dv) and the new state, float32."""
     f32 = torch.float32
     r_, k_, v_, lw = (a.to(f32) for a in (r, k, v, log_w))
     st = state.to(f32)
     new_state = st * torch.exp(lw)[..., None] \
         + k_[..., None] * v_[..., None, :]
+    if u is None:
+        return torch.einsum("bhd,bhdv->bhv", r_, new_state), new_state
     y = torch.einsum("bhd,bhdv->bhv", r_, st)
     y = y + torch.einsum("bhd,hd,bhd->bh", r_, u.to(f32),
                          k_)[..., None] * v_

@@ -6,8 +6,11 @@ the (token, choice) assignments stably by expert id, takes each one's
 position within its expert from exclusive per-expert offsets, and
 scatters the tokens into an (E, C, d) buffer; assignments past an
 expert's capacity C go to a drop row that is thrown away. The expert
-FFNs are batched products over the expert axis; the combine is a
-gate-weighted ``index_add_`` in the model dtype.
+FFNs are batched products over the expert axis; the combine adds each
+token's k gate-weighted outputs in the model dtype, in ascending expert
+order, from zero (the order of the reference's stable argsort followed by
+``.at[].add``), so that the result is pinned for any k and run-to-run
+bitwise on the card.
 
 Nothing here reads a device value back to the host: the per-expert
 counts come from ``scatter_add_`` (``torch.bincount`` reads its input's
@@ -68,6 +71,41 @@ def route(p: dict, x2d: torch.Tensor, mcfg: MoEConfig, aux: bool = False
     return gates, idx, e * torch.sum(me * ce)
 
 
+def combine_ascending(contrib: torch.Tensor, order: torch.Tensor,
+                      idx: torch.Tensor) -> torch.Tensor:
+    """contrib (T*k, d), each assignment's weighted output in the stable
+    sort's order ``order`` of the flat (token, choice) assignments; idx
+    (T, k) the experts -> y (T, d): each token's k contributions summed
+    left to right in ascending expert index, starting from zero, rounded
+    to contrib's dtype after each add. Elementwise adds only, so the same
+    inputs give the same bits on every run. With top-2 the sum is 0 + a
+    + b, which two adds onto zero give in either order, so one
+    ``index_add_`` computes it."""
+    t, k = idx.shape
+    if k == 2:
+        return torch.zeros((t, contrib.shape[1]), dtype=contrib.dtype,
+                           device=contrib.device).index_add_(
+                               0, order // k, contrib)
+    return _ascending_sum(contrib, order, idx)
+
+
+def _ascending_sum(contrib: torch.Tensor, order: torch.Tensor,
+                   idx: torch.Tensor) -> torch.Tensor:
+    """``combine_ascending``'s sum for any k: a (T, k, d) gather in
+    ascending expert order, then k adds."""
+    t, k = idx.shape
+    flat = torch.empty_like(contrib)
+    flat[order] = contrib                       # back to (token, choice)
+    asc = torch.argsort(idx, dim=1)             # a token's experts differ
+    per_tok = flat.view(t, k, -1).gather(
+        1, asc[..., None].expand(t, k, contrib.shape[1]))
+    y = torch.zeros((t, contrib.shape[1]), dtype=contrib.dtype,
+                    device=contrib.device)
+    for j in range(k):
+        y = y + per_tok[:, j]
+    return y
+
+
 def moe_block(p: dict, x2d: torch.Tensor, mcfg: MoEConfig,
               aux: bool = False
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -101,13 +139,13 @@ def moe_block(p: dict, x2d: torch.Tensor, mcfg: MoEConfig,
     out_flat = torch.cat([out_e.reshape(e * cap, d),
                           torch.zeros((1, d), dtype=out_e.dtype,
                                       device=dev)])
-    # the combine stays in the model dtype, as the reference's does. With
-    # top-2 every token gets exactly two adds onto zero, and a + b == b + a,
-    # so the result does not depend on the order index_add_ adds in
+    # the combine stays in the model dtype, as the reference's does, and
+    # adds each token's contributions one at a time in ascending expert
+    # index from zero: the reference's scatter-add meets them in the
+    # stable sort's order
     gate_scale = torch.where(keep, sg, 0.0).to(x2d.dtype)
     contrib = out_flat[slot].to(x2d.dtype) * gate_scale[:, None]
-    y = torch.zeros((t, d), dtype=x2d.dtype, device=dev).index_add_(
-        0, stok, contrib)
+    y = combine_ascending(contrib, order, idx)
     if "shared" in p:
         sh = p["shared"]
         y = y + (F.silu(x2d @ sh["w_gate"]) * (x2d @ sh["w_up"])

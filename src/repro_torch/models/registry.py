@@ -1,9 +1,10 @@
-"""Uniform per-architecture API of the serving slice, mirroring the
-reference's ``models/registry.py`` for the ``dense``, ``moe`` and
-``ssm`` arch types (``moe`` goes through the transformer, as ``dense``
-does): ``init_params``, ``init_serve_state``, ``serve_step``,
-``prefill`` and ``serve_cache_len``. Other arch types raise until they
-are ported.
+"""Uniform per-architecture serving API, mirroring the reference's
+``models/registry.py`` for its six arch types: ``init_params``,
+``init_serve_state``, ``state_batch_axes``, ``serve_step``, ``prefill``,
+``serve_cache_len``, and ``input_specs``/``serve_specs`` (shapes and
+dtypes as tensors on the ``meta`` device, nothing allocated). ``dense``,
+``moe`` and ``vlm`` go through the transformer, ``ssm`` through RWKV6,
+``hybrid`` through Zamba2 and ``audio`` through the encoder-decoder.
 
 Entry points take ``device``: ``None`` means CUDA and raises without a
 CUDA device. The serve state's tensors are updated in place by
@@ -11,22 +12,26 @@ CUDA device. The serve state's tensors are updated in place by
 """
 from __future__ import annotations
 
+import logging
 from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ARCH_TYPES, InputShape, ModelConfig
 from repro_torch.kernels.common import resolve_device
-from repro_torch.models import rwkv6, transformer
+from repro_torch.models import encdec, rwkv6, transformer, zamba2
 
-PORTED_ARCH_TYPES = ("dense", "moe", "ssm")
+# sliding window used by the long-context serving mode of full-attention
+# archs
+LONG_CONTEXT_WINDOW = 8192
+
+log = logging.getLogger(__name__)
 
 
 def _check(cfg: ModelConfig) -> None:
-    if cfg.arch_type not in PORTED_ARCH_TYPES:
-        raise NotImplementedError(f"{cfg.name}: arch type {cfg.arch_type!r} "
-                                  f"is not ported; ported: "
-                                  f"{PORTED_ARCH_TYPES}")
+    if cfg.arch_type not in ARCH_TYPES:
+        raise ValueError(f"{cfg.name}: unknown arch type "
+                         f"{cfg.arch_type!r}; known: {ARCH_TYPES}")
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
@@ -38,7 +43,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     gen = torch.Generator(device=dev).manual_seed(seed)
     if cfg.arch_type == "ssm":
         return rwkv6.init_lm(cfg, gen, device=dev)
-    return transformer.init_lm(cfg, gen, device=dev)
+    if cfg.arch_type == "hybrid":
+        return zamba2.init_lm(cfg, gen, device=dev)
+    if cfg.arch_type == "audio":
+        return encdec.init_model(cfg, gen, device=dev)
+    return transformer.init_lm(cfg, gen, device=dev)  # dense / moe / vlm
+
+
+def serve_window(cfg: ModelConfig, shape: InputShape) -> int:
+    """Ring-buffer window for attention KV caches under this input shape."""
+    if shape.name != "long_500k":
+        return 0
+    return cfg.sliding_window or LONG_CONTEXT_WINDOW
 
 
 def serve_cache_len(cfg: ModelConfig, seq_len: int) -> int:
@@ -53,6 +69,11 @@ def init_serve_state(cfg: ModelConfig, batch: int, seq_len: int,
     seq_len = serve_cache_len(cfg, seq_len)
     if cfg.arch_type == "ssm":
         return rwkv6.init_state(cfg, batch, device=dev)
+    if cfg.arch_type == "hybrid":
+        return zamba2.init_state(cfg, batch, seq_len, window=window,
+                                 device=dev)
+    if cfg.arch_type == "audio":
+        return encdec.init_cache(cfg, batch, seq_len, device=dev)
     return transformer.init_cache(cfg, batch, seq_len, window=window,
                                   device=dev)
 
@@ -62,6 +83,10 @@ def state_batch_axes(cfg: ModelConfig) -> Dict[str, int]:
     _check(cfg)
     if cfg.arch_type == "ssm":
         return dict(rwkv6.STATE_BATCH_AXIS)
+    if cfg.arch_type == "hybrid":
+        return dict(zamba2.STATE_BATCH_AXIS)
+    if cfg.arch_type == "audio":
+        return dict(encdec.CACHE_BATCH_AXIS)
     return dict(transformer.CACHE_BATCH_AXIS)
 
 
@@ -71,6 +96,10 @@ def serve_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     _check(cfg)
     if cfg.arch_type == "ssm":
         return rwkv6.decode_step(params, cfg, tokens, state)
+    if cfg.arch_type == "hybrid":
+        return zamba2.decode_step(params, cfg, tokens, state, window=window)
+    if cfg.arch_type == "audio":
+        return encdec.decode_step(params, cfg, tokens, state)
     return transformer.decode_step(params, cfg, tokens, state,
                                    window=window or None)
 
@@ -79,13 +108,64 @@ def prefill(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             state: Dict[str, Any], window: int = 0,
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Prompt processing: (last position's logits (B, 1, V), state).
+    ``batch`` holds ``tokens`` (B, S), with ``frames`` (B, F, d) for
+    ``audio`` and ``patches`` (B, P, d) for ``vlm``.
 
-    For ``ssm`` the prefill is the training-mode forward (the WKV scan
+    For ``ssm`` and ``hybrid`` the prefill is the training-mode forward
+    (the WKV scan, or the Mamba2 chunked form and the shared attention,
     over the prompt) and the state comes back unchanged, as in the
-    reference; its serve launcher rebuilds the state token by token."""
+    reference; its serve launcher rebuilds the state token by token.
+
+    For ``audio`` the frames are encoded once: the output goes into the
+    state's ``enc_out`` and feeds the decoder's forward over the prompt
+    (the reference encodes them twice, the same function). As in the
+    reference (R13), the decoder's self-attention cache is left empty and
+    ``pos`` at 0, so decoding starts at position 0 and never attends to
+    the prompt; this is logged, not fixed."""
     _check(cfg)
-    if cfg.arch_type == "ssm":
-        logits, _ = rwkv6.forward_lm(params, cfg, batch["tokens"])
+    if cfg.arch_type in ("ssm", "hybrid"):
+        mod = rwkv6 if cfg.arch_type == "ssm" else zamba2
+        logits, _ = mod.forward_lm(params, cfg, batch["tokens"])
+        return logits[:, -1:], state
+    if cfg.arch_type == "audio":
+        enc_out = encdec.encode(params, cfg, batch["frames"])
+        state = encdec.start_serving(params, cfg, batch["frames"], state,
+                                     enc_out=enc_out)
+        logits, _ = encdec.forward(params, cfg, batch["frames"],
+                                   batch["tokens"], enc_out=enc_out)
+        log.warning("%s prefill: the decoder's self-attention cache is left "
+                    "empty and pos at 0, as in the reference (R13); decoding "
+                    "starts at position 0 without the prompt", cfg.name)
         return logits[:, -1:], state
     return transformer.prefill(params, cfg, batch["tokens"], state,
-                               window=window or None)
+                               window=window or None,
+                               patch_embeds=batch.get("patches"))
+
+
+# ---------------------------------------------------------------------------
+# input specs: shapes and dtypes as ``meta`` tensors (nothing allocated)
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape) -> Dict[str, Any]:
+    """Training / prefill batch specs."""
+    b, s = shape.global_batch, shape.seq_len
+    meta = torch.device("meta")
+    specs = {"tokens": torch.empty((b, s), dtype=torch.int32, device=meta)}
+    if shape.kind == "train":
+        specs["labels"] = torch.empty((b, s), dtype=torch.int32, device=meta)
+    if cfg.arch_type == "audio":
+        specs["frames"] = torch.empty((b, cfg.num_frames, cfg.d_model),
+                                      dtype=cfg.torch_dtype, device=meta)
+    if cfg.arch_type == "vlm":
+        specs["patches"] = torch.empty((b, cfg.num_patches, cfg.d_model),
+                                       dtype=cfg.torch_dtype, device=meta)
+    return specs
+
+
+def serve_specs(cfg: ModelConfig, shape: InputShape) -> Dict[str, Any]:
+    """Decode-step specs: one token and a seq_len cache or state."""
+    b = shape.global_batch
+    state = init_serve_state(cfg, b, shape.seq_len,
+                             window=serve_window(cfg, shape), device="meta")
+    return {"tokens": torch.empty((b, 1), dtype=torch.int32, device="meta"),
+            "state": state}

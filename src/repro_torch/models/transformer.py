@@ -8,7 +8,10 @@ forward loops over layers in Python. The prompt's attention (prefill and
 the training forward) runs through the flash attention kernel; decode
 attends over the cache in plain torch. An MoE config's layers take the
 MoE block (``models/moe.py``, its router through the router kernel) in
-place of the MLP. VLM configurations raise until they are ported.
+place of the MLP. A VLM config (``num_patches``) takes image-patch
+embeddings, projected by ``patch_proj`` and prepended to the tokens, with
+a prefix-LM mask (the patches see each other both ways); that mask is not
+the flash kernel's function, so its prompt attends in plain torch.
 """
 from __future__ import annotations
 
@@ -19,12 +22,6 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.moe import init_moe, moe_block
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.num_patches:
-        raise NotImplementedError(f"{cfg.name}: the VLM patch prefix is not "
-                                  "ported yet")
 
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
@@ -45,7 +42,6 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
 
 
 def init_lm(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
-    _check_ported(cfg)
     dt = cfg.torch_dtype
     p = {
         "embed": L.embed_init(gen, (cfg.vocab_size, cfg.d_model), dt,
@@ -57,6 +53,9 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
     if not cfg.tie_embeddings:
         p["lm_head"] = L.dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                     dtype=dt, device=device)
+    if cfg.num_patches:   # VLM patch projector (the frontend supplies embeds)
+        p["patch_proj"] = L.dense_init(gen, (cfg.d_model, cfg.d_model),
+                                       dtype=dt, device=device)
     return p
 
 
@@ -80,8 +79,11 @@ def _layer_apply(cfg: ModelConfig, lp: dict, x, positions, mask=None,
     return x + out.reshape(b, s, d), loss
 
 
-def embed_inputs(params: dict, cfg: ModelConfig,
-                 tokens: torch.Tensor) -> torch.Tensor:
+def embed_inputs(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                 patch_embeds: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """Token embeddings (B, S, d), after the projected patches (B, P, d)
+    when ``patch_embeds`` is given."""
     x = params["embed"][tokens.long()]
     if cfg.tie_embeddings:
         # the scale is rounded to the activation dtype first, as in JAX,
@@ -89,7 +91,24 @@ def embed_inputs(params: dict, cfg: ModelConfig,
         # copy and synchronise the stream every call
         scale = torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
         x = x * scale
+    if patch_embeds is not None:
+        proj = patch_embeds.to(x.dtype) @ params["patch_proj"]
+        x = torch.cat([proj, x], dim=1)
     return x
+
+
+def _prefix_mask(s: int, prefix: int, window: int, device,
+                 slots: int = 0):
+    """The prefix-LM mask of S positions over ``slots`` key slots (S when
+    0; slot j holds position j, slots past S are unwritten), batch-free
+    (S, slots), or None when there is no prefix (the flash kernel's
+    causal function)."""
+    if not prefix:
+        return None
+    pos = torch.arange(s, dtype=torch.int32, device=device)
+    slot = torch.arange(slots or s, dtype=torch.int32, device=device)
+    return L.attention_scores_mask(pos, slot, k_valid=slot < s,
+                                   sliding_window=window, prefix_len=prefix)
 
 
 def unembed(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -99,19 +118,23 @@ def unembed(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return x @ params["lm_head"]
 
 
-def forward_lm(params: dict, cfg: ModelConfig, tokens: torch.Tensor
+def forward_lm(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+               patch_embeds: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training/prefill forward: (logits (B, S, V), the sum of the MoE
-    layers' load-balance losses; 0 for a dense model)."""
-    _check_ported(cfg)
-    x = embed_inputs(params, cfg, tokens)
+    layers' load-balance losses; 0 for a dense model). With
+    ``patch_embeds`` (B, P, d) the logits cover the P + S positions."""
+    x = embed_inputs(params, cfg, tokens, patch_embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
+    prefix = 0 if patch_embeds is None else patch_embeds.shape[1]
+    mask = _prefix_mask(s, prefix, cfg.sliding_window, x.device)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
         x, loss = _layer_apply(cfg, L.layer_params(params, i), x, positions,
-                               window=cfg.sliding_window, aux=True)
+                               mask=mask, window=cfg.sliding_window,
+                               aux=True)
         if loss is not None:
             total = total + loss
     return unembed(params, cfg, x), total
@@ -144,18 +167,22 @@ CACHE_BATCH_AXIS = {"k": 1, "v": 1, "kpos": 0, "pos": 0}
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-            cache: Dict[str, Any], window: Optional[int] = None
+            cache: Dict[str, Any], window: Optional[int] = None,
+            patch_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run the prompt (B, S) through the model, writing the KV cache (in
     place). Returns the last position's logits (B, 1, V) and the cache.
 
     The reference attends over the whole cache with unwritten slots
     masked to -1e30; those slots add exactly 0 after the float32 exp, so
-    attending causally to the prompt's own S positions (through the flash
-    kernel) is the same function. The prompt must fit the cache.
+    attending to the prompt's own S positions through the flash kernel,
+    causally, is the same function. With ``patch_embeds`` (the VLM
+    prefix, S = P + tokens) attention runs as the reference's does, over
+    the whole cache with the prefix-LM mask, in plain torch: the flash
+    kernel takes neither that mask nor paligemma's head dim of 256. The
+    prompt must fit the cache.
     """
-    _check_ported(cfg)
-    x = embed_inputs(params, cfg, tokens)
+    x = embed_inputs(params, cfg, tokens, patch_embeds)
     b, s, _ = x.shape
     size = cache["k"].shape[2]
     if s > size:
@@ -165,9 +192,11 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                              device=x.device).expand(b, s)
     cache_positions = positions % size
     window = cfg.sliding_window if window is None else window
+    prefix = 0 if patch_embeds is None else patch_embeds.shape[1]
+    mask = _prefix_mask(s, prefix, window, x.device, size)
     for i in range(cfg.num_layers):
         x, _ = _layer_apply(cfg, L.layer_params(params, i), x, positions,
-                            window=window,
+                            mask=mask, window=window,
                             kv_cache=(cache["k"][i], cache["v"][i]),
                             cache_positions=cache_positions)
     cache = dict(cache)
@@ -182,7 +211,6 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """tokens (B, 1): one autoregressive step over the cache (updated in
     place). Returns logits (B, 1, V) and the cache."""
-    _check_ported(cfg)
     b = tokens.shape[0]
     x = embed_inputs(params, cfg, tokens)
     positions = cache["pos"][:, None]                       # (B, 1)

@@ -11,10 +11,12 @@ queue. Greedy sampling.
 Slot reset differs from the reference on purpose. The reference zeroes
 slot i on the first axis of each state field whose length equals the
 slot count (``src/repro/serving/engine.py:91-105``). The transformer
-cache ``k``/``v`` is (num_layers, B, size, KV, hd) and the RWKV state
-``wkv`` is (num_layers, B, H, hd, hd), so when the slot count equals
-the number of layers (28 slots on qwen2-1.5b, 24 on rwkv6-1.6b) the
-reference zeroes layer i of every slot instead of slot i. This engine
+cache ``k``/``v`` is (num_layers, B, size, KV, hd), the RWKV state
+``wkv`` is (num_layers, B, H, hd, hd) and Zamba2's ``ssm``/``conv`` are
+(num_layers, B, ...) and its ``k``/``v`` (sites, B, ...), so when the
+slot count equals the number of layers (28 slots on qwen2-1.5b, 24 on
+rwkv6-1.6b) or of sites (7 on zamba2-1.2b) the reference zeroes layer
+or site i of every slot instead of slot i. This engine
 resets each field along its known batch axis
 (``registry.state_batch_axes``), which equals the reference for every
 slot count that does not collide with another axis.

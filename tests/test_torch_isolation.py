@@ -37,7 +37,12 @@ SERVE_SLICE = ("configs/base.py", "configs/qwen2_1_5b.py",
                "launch/serve.py", "serving/engine.py",
                "configs/mixtral_8x22b.py", "models/moe.py",
                "kernels/moe_router/ops.py", "kernels/moe_router/kernel.py",
-               "kernels/moe_router/ref.py")
+               "kernels/moe_router/ref.py", "configs/granite_8b.py",
+               "configs/granite_20b.py", "configs/qwen2_5_14b.py",
+               "configs/kimi_k2_1t_a32b.py", "configs/zamba2_1_2b.py",
+               "configs/paligemma_3b.py",
+               "configs/seamless_m4t_large_v2.py", "models/mamba2.py",
+               "models/zamba2.py", "models/encdec.py")
 
 
 def test_port_files_found():

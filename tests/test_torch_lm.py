@@ -28,7 +28,14 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
-from _torch_parity import np_, t_  # noqa: E402
+from _torch_lm_parity import check_greedy as _check_greedy  # noqa: E402
+from _torch_lm_parity import init_tree_matches_reference  # noqa: E402
+from _torch_lm_parity import jax_serve_flow as _jax_serve_flow  # noqa: E402
+from _torch_lm_parity import random_state as _random_state  # noqa: E402
+from _torch_lm_parity import \
+    reference_decode_alone as _reference_decode_alone  # noqa: E402
+from _torch_lm_parity import reference_reset as _reference_reset  # noqa: E402
+from _torch_parity import np_, one_torch_thread, t_  # noqa: E402,F401
 from repro.configs import get_config as jax_config  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
 from repro.models import registry as JR  # noqa: E402
@@ -43,10 +50,11 @@ from repro_torch.models import rwkv6, transformer  # noqa: E402
 from repro_torch.models.convert import lm_params_from_jax  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 ARCHS = ("qwen2-1.5b", "mixtral-8x22b", "rwkv6-1.6b")
 BLOCK_TOL = 1e-6
 LOGIT_ATOL = {"dense": 5e-5, "moe": 5e-5, "ssm": 2e-4}
-MARGIN_FACTOR = 20.0
 
 
 def _np_tree(tree):
@@ -72,20 +80,6 @@ def _assert_logits(got, want, cfg):
                                atol=LOGIT_ATOL[cfg.arch_type], rtol=1e-4)
 
 
-def _check_greedy(got_logits, want_logits):
-    """Greedy tokens equal, with the lead of the reference's top-1 over its
-    runner-up larger than MARGIN_FACTOR x the largest logit gap. Returns
-    the smallest lead."""
-    want = np.asarray(want_logits, np.float64)
-    got = np_(got_logits).astype(np.float64)
-    top2 = np.sort(want, axis=-1)[..., -2:]
-    lead = float((top2[..., 1] - top2[..., 0]).min())
-    gap = float(np.abs(got - want).max())
-    assert lead > MARGIN_FACTOR * gap, (lead, gap)
-    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
-    return lead
-
-
 # ---------------------------------------------------------------------------
 # configs, converter, entry points
 
@@ -101,19 +95,27 @@ def test_config_matches_reference(arch, reduced):
 
 
 def test_unported_arch_raises_naming_the_ported():
+    """Every id of the reference resolves; an unknown id raises KeyError
+    naming the available ones."""
     with pytest.raises(KeyError, match="qwen2-1.5b"):
-        get_config("zamba2-1.2b")
+        get_config("no-such-arch-1b")
+    with pytest.raises(KeyError, match="zamba2-1.2b"):
+        get_config("no-such-arch-1b")
 
 
 def test_unported_arch_types_raise():
-    hybrid = dataclasses.replace(get_config("qwen2-1.5b").reduced(),
-                                 arch_type="hybrid")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        R.init_params(hybrid, 0, device="cpu")
+    """An unknown arch type raises; the VLM patch prefix is served (no
+    NotImplementedError any more)."""
+    odd = dataclasses.replace(get_config("qwen2-1.5b").reduced(),
+                              arch_type="diffusion")
+    with pytest.raises(ValueError, match="unknown arch type"):
+        R.init_params(odd, 0, device="cpu")
+    with pytest.raises(ValueError, match="unknown arch type"):
+        R.init_serve_state(odd, 1, 8, device="cpu")
     vlm = dataclasses.replace(get_config("qwen2-1.5b").reduced(),
                               num_patches=16)
-    with pytest.raises(NotImplementedError, match="VLM"):
-        transformer.init_lm(vlm, torch.Generator().manual_seed(0))
+    params = transformer.init_lm(vlm, torch.Generator().manual_seed(0))
+    assert params["patch_proj"].shape == (vlm.d_model, vlm.d_model)
 
 
 def test_entry_points_ask_for_cuda():
@@ -143,18 +145,8 @@ def test_converter_keeps_bfloat16_bits():
 def test_init_params_tree_matches_reference(arch):
     """Same keys, shapes and dtypes as the reference's init (the numbers
     differ: torch's generator, JAX's scales)."""
-    jc, tc = jax_config(arch).reduced(), get_config(arch).reduced()
-    want = jax.eval_shape(lambda k: JR.init_params(jc, k),
-                          jax.random.PRNGKey(0))
-    got = R.init_params(tc, 3, device="cpu")
-    flat_w = jax.tree_util.tree_flatten_with_path(want)[0]
-    flat_g = jax.tree_util.tree_flatten_with_path(got)[0]
-    assert [p for p, _ in flat_w] == [p for p, _ in flat_g]
-    for (_, w), (_, g) in zip(flat_w, flat_g):
-        assert tuple(g.shape) == tuple(w.shape)
-        assert str(g.dtype).split(".")[-1] == str(w.dtype)
-    again = R.init_params(tc, 3, device="cpu")
-    assert torch.equal(got["embed"], again["embed"])     # seeded
+    init_tree_matches_reference(jax_config(arch).reduced(),
+                                get_config(arch).reduced())
 
 
 # ---------------------------------------------------------------------------
@@ -285,32 +277,6 @@ def test_rwkv6_prefill_agrees_with_token_rebuild():
     np.testing.assert_allclose(np_(pl), np_(sl), atol=1e-4, rtol=1e-4)
 
 
-def _jax_serve_flow(cfg, params, prompt, gen_len):
-    """The reference's ``launch/serve.py`` flow with given parameters and
-    prompt: (prefill logits, logits that chose token 1, each decode
-    step's logits, greedy tokens)."""
-    b, pl = prompt.shape
-    state = JR.init_serve_state(cfg, b, pl + gen_len)
-    prefill_logits, state = JR.prefill(params, cfg, {"tokens": prompt},
-                                       state)
-    logits = prefill_logits
-    if cfg.arch_type in ("ssm", "hybrid"):
-        state = JR.init_serve_state(cfg, b, pl + gen_len)
-        for i in range(pl):
-            logits, state = JR.serve_step(params, cfg, prompt[:, i:i + 1],
-                                          state)
-    step = jax.jit(lambda p, t, s: JR.serve_step(p, cfg, t, s))
-    tok = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
-    out, steps = [tok], []
-    for _ in range(gen_len - 1):
-        sl, state = step(params, tok, state)
-        steps.append(sl[:, -1])
-        tok = jnp.argmax(sl[:, -1:], axis=-1).astype(jnp.int32)
-        out.append(tok)
-    return (prefill_logits, logits, jnp.stack(steps),
-            jnp.concatenate(out, axis=1))
-
-
 def test_serve_flow_matches_reference(model):
     """launch/serve's flow, greedy. Smallest top-1 lead on prompt seed 5
     over the 12 tokens: 0.446 (qwen2 reduced, largest logit gap 1.3e-6),
@@ -341,32 +307,8 @@ def test_serve_command_line_runs_on_cpu(capsys):
 
 
 # ---------------------------------------------------------------------------
-# serving engine
-#
-# The reference's engine (``repro.serving``) is quarantined: no module or
-# test outside its own may import it
-# (``tests/test_deprecated_entry_points.py``). So the port's engine is
-# held against what the reference's engine computes, from the
-# reference's registry: greedy decoding of each request alone from a
-# fresh state, its prompt fed token by token ("prefill as decode"); batch
-# rows do not interact. Its slot reset is held against the reference's
-# rule (``src/repro/serving/engine.py:91-105``), transcribed below.
-
-
-def _reference_decode_alone(cfg, params, prompt, max_tokens, max_len):
-    """One request through the reference's ``serve_step``, as its engine
-    serves it in a slot of its own."""
-    step = jax.jit(lambda p, t, s: JR.serve_step(p, cfg, t, s))
-    state = JR.init_serve_state(cfg, 1, max_len)
-    out = []
-    for tok in prompt:
-        logits, state = step(params, jnp.asarray([[tok]], jnp.int32), state)
-    while True:
-        out.append(int(jnp.argmax(logits[0, -1])))
-        if len(out) == max_tokens:
-            return out
-        logits, state = step(params, jnp.asarray([[out[-1]]], jnp.int32),
-                             state)
+# serving engine (held against the reference's registry: see
+# ``_torch_lm_parity``)
 
 
 def test_engine_matches_reference_decoding(model):
@@ -384,34 +326,6 @@ def test_engine_matches_reference_decoding(model):
         assert req.done and len(req.output) == 4
         assert req.output == _reference_decode_alone(jc, jp, prompt, 4, 16)
     assert engine.stats["tokens_out"] == 20
-
-
-def _reference_reset(state, fresh, b, i):
-    """The reference's ``ServingEngine._reset_slot_state`` rule: on each
-    field, the first axis whose length equals the slot count b."""
-    out = {}
-    for k, cur in state.items():
-        cur = np.array(cur, copy=True)
-        for axis in range(cur.ndim):
-            if cur.shape[axis] == b:
-                idx = [slice(None)] * cur.ndim
-                idx[axis] = i
-                cur[tuple(idx)] = np.asarray(fresh[k])[tuple(idx)]
-                break
-        out[k] = cur
-    return out
-
-
-def _random_state(state, seed):
-    rng = np.random.default_rng(seed)
-    out = {}
-    for k, v in state.items():
-        a = np_(v)
-        if a.dtype.kind == "i":
-            out[k] = rng.integers(0, 9, a.shape).astype(a.dtype)
-        else:
-            out[k] = rng.standard_normal(a.shape).astype(a.dtype)
-    return out
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -119,11 +119,15 @@ def test_chunked_linear_recurrence_contract():
     r, k, v, lw, u = map(t_, _inputs(1, 2, 48, 8, 8, seed=1))
     with pytest.raises(ValueError, match="multiple of the chunk"):
         L.chunked_linear_recurrence(r, k, v, lw, chunk=32, u=u)
-    with pytest.raises(NotImplementedError, match="inclusive"):
-        L.chunked_linear_recurrence(r, k, v, lw, chunk=16)
-    with pytest.raises(NotImplementedError, match="inclusive"):
-        L.linear_recurrence_step(r[:, :, 0], k[:, :, 0], v[:, :, 0],
-                                 lw[:, :, 0], torch.zeros(1, 2, 8, 8))
+    # u=None is the inclusive (Mamba2) form: y_t = r_t . C_t, any T
+    y, fin = L.chunked_linear_recurrence(r, k, v, lw, chunk=32)
+    st = torch.zeros(1, 2, 8, 8)
+    for i in range(48):
+        y_i, st = L.linear_recurrence_step(r[:, :, i], k[:, :, i],
+                                           v[:, :, i], lw[:, :, i], st)
+        np.testing.assert_allclose(np_(y[:, :, i]), np_(y_i), atol=1e-5,
+                                   rtol=1e-5)
+    np.testing.assert_allclose(np_(fin), np_(st), atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("seed", [5, 6])
