@@ -270,13 +270,40 @@ Phases, in order; any failure exits non-zero before a result is printed:
     equal (the pinned k = 8 combine); dropped assignments and peak
     memory printed.
 
+27. LM-scale HFL training (``fed.distributed``, ``launch.train``): B4's
+    backward (``flash_attention_bwd``) against autograd through the
+    plain float32 version (``GRAD_TOL`` of each gradient's largest
+    value) at D 64 causal, window 64 on a ragged S, non-causal, groups of
+    1, 6 and 8, bf16 and float32, and qwen2-1.5b's (4, 512, 12, 2, 128)
+    bf16, timed there (L2 flushed, warm, a call) beside autograd through
+    the plain version, SDPA's backward and the bound, with its ptxas
+    registers and spills; B5's backward (``rwkv6_scan_bwd``) the same way
+    on the model's views in bf16 and float32, at a strong decay (w0 = 1),
+    a ragged T = 100, a nonzero final-state gradient and rwkv6-1.6b's (4,
+    32, 512), timed at that shape; B6's gate gradient (``MoERouter``)
+    against autograd through ``moe_router_ref`` at mixtral-reduced's (256,
+    4, 2) and kimi-k2's (2048, 384, 8), with exact ties; every arch id's
+    ``reduced()`` loss and gradients on the CPU against CUDA within
+    ``TRAIN_CPU_TOL`` (1e-4; the ssm's 2e-2, its gradients moving with the
+    rounding of the scan's output); ``launch.train.main(["--arch", ...])`` on CUDA for
+    qwen2-1.5b, rwkv6-1.6b and mixtral-8x22b, 3 rounds each: finite
+    losses, B2 once a round, B4/B5/B6 and their backward kernels
+    launched, 0 walk host syncs; at full width in bf16, 4 SGD steps
+    (lr ``TRAIN_LR``) of qwen2-1.5b on one fixed 4 x 512 batch (28
+    ``flash_attention`` and 28 ``flash_attention_bwd`` launches a step,
+    the loss at step 4 below step 1's, ms a step and peak GB), then
+    ``make_hfl_round`` with 2 edges, ``t_es`` 2, for 2 rounds (the edges
+    equal after the sync round and only then); and the same 4 steps of
+    rwkv6-1.6b (24 ``rwkv6_scan`` and 24 ``rwkv6_scan_bwd`` a step).
+
 In phases 22-26 every B4 and B6 launch of the measured run is recorded
 with its flags, dtype and shape; each must be a case that phase 21 or
 12 held against the plain version.
 
-Phases 4, 8, 9, 10, 13, 14, 15, 16, 17, 18, 20 and 22-26 each zero the
-launch counts just before their run and read them just after; phase 19
-just before and after each dispatch of the trial runner.
+Phases 4, 8, 9, 10, 13, 14, 15, 16, 17, 18, 20, 22-26 and 27's training
+steps and launcher runs each zero the launch counts just before their
+run and read them just after; phase 19 just before and after each
+dispatch of the trial runner.
 
 The last three lines are the card's name and power limit, a JSON line
 of per-kernel numbers (with the launch floor), and ``{"ok": true,
@@ -4626,6 +4653,448 @@ def kimi_full_width(dev, profile: bool = False) -> dict:
     return row
 
 
+# -- phase 27: LM-scale HFL training ----------------------------------------
+
+# the backward kernels against autograd through their plain float32
+# versions, the error over each gradient's largest reference value:
+# float32 inputs, float32 sums in another order; bf16 inputs, each
+# gradient rounded once to bf16 (2^-8 of a value) and B4 reading the
+# forward's bf16 output for rowsum(dO o O)
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2 ** -7}
+# B6's gate gradient: the same picks, float32 products of gates in [0, 1]
+ROUTER_GRAD_TOL = 1e-6
+# reduced models in float32, loss and gradients, CPU against CUDA, max
+# abs gap: two layers' float32 sums in another order, gradients up to
+# ~0.5. The ssm's (rwkv6) gradients move with the rounding of the WKV
+# scan's output itself: rounding that output once from float64 instead
+# of in the plain version's float32 order moves the embedding's gradient
+# (largest value 3.34) by 1.34e-3 on the CPU, and the plain versions on
+# the card differ from the CPU by 7.2e-4 (tools/train_numerics.py); the
+# kernels' route, by 5.41e-3
+TRAIN_CPU_TOL = {"ssm": 2e-2}
+TRAIN_CPU_TOL_DEFAULT = 1e-4
+# full width, bf16: SGD's step lr * g must clear half a bf16 ulp of the
+# weights (~0.02: 6e-5) for the update to land, and stay below what the
+# random-init models diverge at: on the card at lr 0.1 qwen2-1.5b's loss
+# rose after step 2 (12.10, 10.90, 14.15, 19.22) and rwkv6-1.6b's was
+# NaN from step 2 (0.03 likewise); at 0.01 both fell every step
+# (tools/train_numerics.py)
+TRAIN_LR = 0.01
+TRAIN_STEPS = 4
+FLASH_BWD_CASES = (
+    # (B, S, H, KV, D, dtype, causal, window)
+    (2, 256, 4, 4, 64, "bfloat16", True, 0),
+    (2, 200, 12, 2, 64, "bfloat16", True, 64),
+    (2, 256, 8, 1, 64, "bfloat16", False, 0),
+    (2, 256, 4, 4, 64, "float32", True, 0),
+    (2, 200, 12, 2, 64, "float32", True, 64),
+    (2, 192, 8, 1, 128, "float32", False, 0),
+    (4, 512, 12, 2, 128, "bfloat16", True, 0),   # qwen2-1.5b's training
+)
+SCAN_BWD_CASES = (
+    # (B, H, T, w0, views, dtype, final-state gradient)
+    (4, 32, 512, -2.0, True, "bfloat16", False),  # rwkv6-1.6b's training
+    (4, 32, 512, -2.0, True, "float32", True),
+    (2, 32, 512, 1.0, True, "bfloat16", True),    # strong decay
+    (2, 32, 100, -2.0, True, "bfloat16", False),  # ragged T
+    (2, 8, 256, -2.0, False, "float32", True),    # contiguous (B, H, T, 64)
+)
+LAUNCHER_ARCHS = ("qwen2-1.5b", "rwkv6-1.6b", "mixtral-8x22b")
+
+
+def grad_margin(got, want, tol, what) -> float:
+    """Each gradient's max abs error over its largest reference value,
+    against ``tol``; the max abs error."""
+    import torch
+    worst_rel, worst_abs = 0.0, 0.0
+    for name, g, w in zip(what[1], got, want):
+        if not torch.isfinite(g).all():
+            fail(f"{what[0]}: non-finite d{name}")
+        err = (g.float() - w).abs().max().item()
+        worst_abs = max(worst_abs, err)
+        worst_rel = max(worst_rel, err / max(w.abs().max().item(), 1e-12))
+    print(f"  {what[0]}: max abs err {worst_abs:.3e}, max err over the "
+          f"gradient's largest value {worst_rel:.3e} (tol {tol:.3e}, "
+          f"margin {tol / max(worst_rel, 1e-30):.1f}x)")
+    if worst_rel > tol:
+        fail(f"{what[0]}: gradients differ by {worst_rel} > {tol}")
+    return worst_abs
+
+
+def autograd_grads(fn, inputs, grads_out):
+    """Autograd through ``fn`` on float32 copies of ``inputs``, the
+    outputs' gradients ``grads_out`` (None: the output takes none)."""
+    import torch
+    xs = [x.detach().float().requires_grad_(True) for x in inputs]
+    outs = fn(*xs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    pairs = [(o, g.float()) for o, g in zip(outs, grads_out) if g is not None]
+    return list(torch.autograd.grad([o for o, _ in pairs],
+                                    xs, [g for _, g in pairs]))
+
+
+def check_flash_attention_bwd(dev):
+    """B4's backward on ``FLASH_BWD_CASES`` (the model layout's views, as
+    ``ops.FlashAttention`` passes them) against autograd through
+    ``attention_ref`` in float32; timed at qwen2-1.5b's training shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_kernel, flash_attention_kernel)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    ptxas_lines("flash_attention_bwd")
+    worst = 0.0
+    for i, (b, s, h, kv, d, dt, causal, window) in enumerate(
+            FLASH_BWD_CASES):
+        dtype = getattr(torch, dt)
+        q, k, v = flash_views(dev, b, s, h, kv, d, dtype, 30 + i)
+        gen = torch.Generator(device=dev).manual_seed(40 + i)
+        do = torch.randn((b, s, h, d), generator=gen, device=dev).to(
+            dtype).transpose(1, 2)
+        o = flash_attention_kernel(q, k, v, causal=causal, window=window)
+        got = flash_attention_bwd_kernel(q, k, v, o, do, causal=causal,
+                                         window=window)
+        want = autograd_grads(
+            lambda a, bb, c: attention_ref(a, bb, c, causal=causal,
+                                           window=window), (q, k, v), (do,))
+        err = grad_margin(got, want, GRAD_TOL[dt], (
+            f"flash_attention_bwd {dt} {(b, s, h, kv, d)} causal={causal} "
+            f"window={window} (group {h // kv})", "qkv"))
+        if dt == "bfloat16":
+            worst = max(worst, err)
+    # timing at qwen2-1.5b's training shape: q, k, v, o, do as above
+    b, s, h, kv, d = FLASH_BWD_CASES[-1][:5]
+    call = lambda: flash_attention_bwd_kernel(q, k, v, o, do, causal=True)
+    ms, wall = event_ms(call), cuda_ms(call, 20)
+    warm = event_ms(call, cold=False)
+    print(f"  flash_attention_bwd timed; SM clock, power: {sm_clock()}")
+    xs = [a.detach().requires_grad_(True) for a in (q, k, v)]
+    out = attention_ref(*xs, causal=True)
+    plain = event_ms(lambda: torch.autograd.grad(out, xs, do,
+                                                 retain_graph=True), iters=5)
+    xc = [a.detach().contiguous().requires_grad_(True) for a in (q, k, v)]
+    out_c = F.scaled_dot_product_attention(*xc, is_causal=True,
+                                           enable_gqa=True)
+    do_c = do.contiguous()
+    lib = event_ms(lambda: torch.autograd.grad(out_c, xc, do_c,
+                                               retain_graph=True))
+    nbytes = 2 * (4 * b * h * s * d + 4 * b * kv * s * d)
+    ops = 10 * b * h * d * s * (s + 1) // 2
+    bnd, by = lm_bound_ms(nbytes, ops, BF16_OPS_PER_S)
+    print(f"  flash_attention_bwd bf16 at {(b, s, h, kv, d)}: kernel "
+          f"{ms * 1e3:.2f} us, SDPA backward {lib * 1e3:.2f} us, plain "
+          f"{plain * 1e3:.2f} us; {ops / ms / 1e9:.1f} TFLOP/s, "
+          f"{bnd / ms:.3f} of the bound {bnd * 1e3:.3f} us ({by})")
+    return dict(name="flash_attention_bwd", route="cuda",
+                source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                replaces="none: not a TPU kernel (XLA autodiff of jnp in "
+                         "the reference)",
+                max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bnd,
+                bound_by=by, library_ms=lib, shape=[b, s, h, kv, d],
+                wall_ms=wall, warm_ms=warm)
+
+
+def check_rwkv6_scan_bwd(dev):
+    """B5's backward on ``SCAN_BWD_CASES`` against autograd through
+    ``rwkv6_scan_ref`` in float32; timed at rwkv6-1.6b's training shape
+    (the first case)."""
+    import torch
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_bwd_kernel
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+    ptxas_lines("rwkv6_scan_bwd")
+    worst, timed = 0.0, None
+    for i, (b, h, t, w0, views, dt, fin) in enumerate(SCAN_BWD_CASES):
+        r, k, v, lw, u = scan_inputs(dev, b, h, t, w0, views, 50 + i, dt)
+        gen = torch.Generator(device=dev).manual_seed(60 + i)
+        dy = torch.randn((b, t, h, 64), generator=gen,
+                         device=dev).transpose(1, 2)
+        dfin = (torch.randn((b, h, 64, 64), generator=gen, device=dev)
+                if fin else None)
+        got = rwkv6_scan_bwd_kernel(r, k, v, lw, u, dy, dfin)
+        want = autograd_grads(rwkv6_scan_ref, (r, k, v, lw, u), (dy, dfin))
+        err = grad_margin(got, want, GRAD_TOL[dt], (
+            f"rwkv6_scan_bwd {dt} {(b, h, t)} w0={w0} "
+            f"{'views' if views else 'contiguous'}"
+            f"{', final-state gradient' if fin else ''}",
+            ("r", "k", "v", "log_w", "u")))
+        if dt == "bfloat16":
+            worst = max(worst, err)
+        if timed is None:
+            timed = (r, k, v, lw, u, dy)
+    r, k, v, lw, u, dy = timed
+    b, h, t = SCAN_BWD_CASES[0][:3]
+    call = lambda: rwkv6_scan_bwd_kernel(r, k, v, lw, u, dy)
+    ms, wall = event_ms(call), cuda_ms(call, 20)
+    warm = event_ms(call, cold=False)
+    print(f"  rwkv6_scan_bwd timed; SM clock, power: {sm_clock()}")
+    xs = [a.detach().requires_grad_(True) for a in (r, k, v, lw, u)]
+    y, _ = rwkv6_scan_ref(*xs)
+    # 512 steps of small kernels each way, launch-bound: summed kernel
+    # time, as phase 7 times the plain forward
+    plain = device_ms(lambda: torch.autograd.grad(y, xs, dy,
+                                                  retain_graph=True),
+                      iters=2)
+    n = b * h * t * 64
+    nbytes = 2 * 3 * n + 4 * 2 * n + 2 * 3 * n + 4 * n
+    ops = 12 * 64 * 64 * b * h * t
+    bnd, by = lm_bound_ms(nbytes, ops, FP32_OPS_PER_S)
+    print(f"  rwkv6_scan_bwd bf16 at {(b, h, t, 64, 64)}, model's views: "
+          f"kernel {ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us; "
+          f"{bnd / ms:.3f} of the bound {bnd * 1e3:.3f} us ({by})")
+    return dict(name="rwkv6_scan_bwd", route="cuda",
+                source="src/repro_torch/csrc/rwkv6_scan_bwd.cu",
+                replaces="none: not a TPU kernel (XLA autodiff of jnp in "
+                         "the reference)",
+                max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bnd,
+                bound_by=by, library_ms=None, shape=[b, h, t, 64, 64],
+                wall_ms=wall, warm_ms=warm)
+
+
+def check_router_gate_grad(dev) -> float:
+    """B6's gates through ``ops.MoERouter`` and their gradient against
+    autograd through ``moe_router_ref``: mixtral-reduced's (256, 4, 2)
+    and kimi-k2's (2048, 384, 8), each also with logits rounded to halves
+    (exact ties in every row)."""
+    import torch
+    from repro_torch.kernels import common
+    from repro_torch.kernels.moe_router.ops import moe_router
+    from repro_torch.kernels.moe_router.ref import moe_router_ref
+    worst = 0.0
+    for t, e, k in ((256, 4, 2), (2048, 384, 8)):
+        for ties in (False, True):
+            gen = torch.Generator(device=dev).manual_seed(e + ties)
+            logits = torch.randn((t, e), generator=gen, device=dev)
+            if ties:
+                logits = torch.round(logits * 2) / 2
+            dg = torch.randn((t, k), generator=gen, device=dev)
+            x = logits.clone().requires_grad_(True)
+            before = common.LAUNCHES["moe_router"]
+            gates, idx = moe_router(x, k)
+            gates.backward(dg)
+            if common.LAUNCHES["moe_router"] != before + 1:
+                fail("MoERouter did not launch moe_router")
+            xr = logits.clone().requires_grad_(True)
+            wg, wi = moe_router_ref(xr, k)
+            wg.backward(dg)
+            if not torch.equal(idx, wi):
+                fail(f"moe_router picks differ at {(t, e, k)} ties={ties}")
+            err = (x.grad - xr.grad).abs().max().item()
+            worst = max(worst, err)
+            print(f"  moe_router gate gradient {(t, e, k)} ties={ties}: max "
+                  f"abs err {err:.3e} (tol {ROUTER_GRAD_TOL}, margin "
+                  f"{ROUTER_GRAD_TOL / max(err, 1e-30):.1f}x)")
+            if err > ROUTER_GRAD_TOL:
+                fail(f"moe_router gate gradient differs by {err}")
+    return worst
+
+
+def train_cpu_vs_cuda(dev) -> dict:
+    """Every arch id at ``reduced()`` (float32, TF32 off): the same
+    parameters and batch (2 x 64 tokens, weights (1, 0), frames or
+    patches for audio and VLM) through ``fed.distributed.value_and_grad``
+    on the CPU (plain versions) and on CUDA (the kernels and their
+    backward); loss and every gradient leaf within the arch type's
+    ``TRAIN_CPU_TOL``."""
+    import torch
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.fed.distributed import value_and_grad
+    from repro_torch.kernels import common
+    from repro_torch.models import registry as R
+    out = {}
+    shape = InputShape("train", 64, 2, "train")
+    for arch in ARCH_IDS:
+        cfg = get_config(arch).reduced()
+        params = R.init_params(cfg, 0, device="cpu")
+        batch = R.make_concrete_batch(cfg, shape, seed=1, device="cpu")
+        w = torch.tensor([1.0, 0.0])
+        want_l, want_g = value_and_grad(cfg, params, batch, w)
+        common.reset_launches()
+        got_l, got_g = value_and_grad(
+            cfg, to_device(params, dev), to_device(batch, dev), w.to(dev))
+        launches = {k: v for k, v in common.LAUNCHES.items() if v}
+        gap = abs(float(got_l) - float(want_l))
+        gaps = [(got.cpu() - want).abs().max().item()
+                for got, want in zip(leaves(got_g), leaves(want_g))]
+        tol = TRAIN_CPU_TOL.get(cfg.arch_type, TRAIN_CPU_TOL_DEFAULT)
+        print(f"  {arch} reduced: loss {float(want_l):.5f}, gap {gap:.3e}; "
+              f"max gradient gap {max(gaps):.3e} over {len(gaps)} leaves "
+              f"(tol {tol}); launches {launches}")
+        if max([gap] + gaps) > tol:
+            fail(f"{arch}: CPU and CUDA training gradients differ by "
+                 f"{max([gap] + gaps)}")
+        want_k = {"ssm": "rwkv6_scan_bwd"}.get(cfg.arch_type,
+                                               "flash_attention_bwd")
+        if cfg.arch_type != "vlm" and not launches.get(want_k):
+            fail(f"{arch}: {want_k} did not launch in the training step")
+        out[arch] = dict(loss_gap=gap, grad_gap=max(gaps))
+    return out
+
+
+def launcher_runs(dev) -> dict:
+    """``launch.train.main(["--arch", id, ...])`` on CUDA, 3 rounds of 8
+    clients, batch 2 x 64, for ``LAUNCHER_ARCHS``: the printed round-1
+    loss finite, B2 once a round, the arch's forward and backward kernels
+    launched, no walk host sync."""
+    import contextlib
+    import io
+    import re
+    from repro_torch.kernels import common
+    from repro_torch.kernels.budgeted_topk.ref import WALK_SYNCS
+    from repro_torch.launch.train import main as train_main
+    out = {}
+    for arch in LAUNCHER_ARCHS:
+        buf = io.StringIO()
+        syncs = dict(WALK_SYNCS)
+        common.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = train_main(["--arch", arch, "--rounds", "3", "--clients",
+                             "8", "--seq-len", "64", "--batch", "2"])
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in common.LAUNCHES.items() if v}
+        walk = sum(WALK_SYNCS[k] - syncs[k] for k in WALK_SYNCS)
+        losses = [float(m) for m in re.findall(r"mean_loss (\S+)",
+                                               buf.getvalue())]
+        print(f"  launch.train --arch {arch}: {buf.getvalue().strip()}; "
+              f"launches {launches}, walk host syncs {walk}, {wall:.2f} s")
+        if rc != 0 or not losses or not all(math.isfinite(x)
+                                            for x in losses):
+            fail(f"launch.train --arch {arch}: rc {rc}, losses {losses}")
+        b2 = launches.get("budgeted_topk")
+        if b2 != 3 or walk:
+            fail(f"launch.train --arch {arch}: B2 {b2} launches in 3 "
+                 f"rounds, {walk} walk host syncs")
+        need = {"qwen2-1.5b": ("flash_attention", "flash_attention_bwd"),
+                "rwkv6-1.6b": ("rwkv6_scan", "rwkv6_scan_bwd"),
+                "mixtral-8x22b": ("flash_attention", "flash_attention_bwd",
+                                  "moe_router")}[arch]
+        for name in need:
+            if not launches.get(name):
+                fail(f"launch.train --arch {arch}: {name} not launched")
+        out[arch] = dict(losses=losses, launches=launches, wall_s=wall)
+    return out
+
+
+def fixed_batch(cfg, dev, batch: int = 4, seq: int = 512, seed: int = 0):
+    """One Zipf token batch as the training loop draws them
+    (``data.tokens``), on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.data.tokens import TokenStream
+    b = TokenStream(cfg.vocab_size, seq, batch, seed=seed).sample(
+        np.random.default_rng(seed))
+    return {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+
+
+def train_full_width(dev, arch: str, kernels) -> dict:
+    """``TRAIN_STEPS`` steps of ``make_train_step`` (lr ``TRAIN_LR``) at
+    full width and depth in bf16 (random weights from seed 0) on one
+    fixed 4 x 512 batch: each step's launches of ``kernels`` equal to the
+    layer count, finite losses, the last below the first; ms a step
+    (host clock around a synchronised step) and peak GB."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.fed.distributed import make_train_step
+    from repro_torch.kernels import common
+    from repro_torch.models import registry as R
+    cfg = get_config(arch)
+    params = R.init_params(cfg, 0, device=dev)
+    batch = fixed_batch(cfg, dev)
+    w = torch.ones(4, device=dev)
+    step = make_train_step(cfg, lr=TRAIN_LR)
+    losses, ms, total = [], [], {k: 0 for k in kernels}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    p = params
+    for i in range(TRAIN_STEPS):
+        common.reset_launches()
+        t0 = time.perf_counter()
+        p, loss = step(p, batch, w)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        for k in kernels:
+            if common.LAUNCHES[k] != cfg.num_layers:
+                fail(f"{arch} step {i + 1}: {k} launched "
+                     f"{common.LAUNCHES[k]} times, not {cfg.num_layers}")
+            total[k] += common.LAUNCHES[k]
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    each = ", ".join(f"{k} {v // TRAIN_STEPS} a step"
+                     for k, v in total.items())
+    print(f"  {arch} full width bf16, {TRAIN_STEPS} steps on one 4 x 512 "
+          f"batch, lr {TRAIN_LR}: losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; ms a step "
+          f"{', '.join(f'{x:.1f}' for x in ms)}; peak {peak:.2f} GB; "
+          f"{each}")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        fail(f"{arch}: the loss did not fall over {TRAIN_STEPS} steps "
+             f"({losses})")
+    return dict(params=params, cfg=cfg, losses=losses, ms=ms, peak_gb=peak,
+                launches=total)
+
+
+def hfl_round_full_width(dev, cfg, params) -> dict:
+    """``make_hfl_round`` at full width: 2 edges (each 2 x 512 of its own
+    batch), ``t_es`` 2, 2 rounds: the edges differ after round 1 and are
+    bitwise equal after round 2 (the sync); ms a round, peak GB."""
+    import torch
+    from repro_torch.fed.distributed import make_hfl_round, stack_edge_params
+    from repro_torch.kernels import common
+    rnd = make_hfl_round(cfg, n_edge=2, t_es=2, lr=TRAIN_LR)
+    ep = stack_edge_params(params, 2)
+    batch = {k: v.reshape(2, 2, -1) for k, v in fixed_batch(cfg, dev, seed=1)
+             .items()}
+    w = torch.ones((2, 2), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], []
+    for step in (0, 1):
+        common.reset_launches()
+        t0 = time.perf_counter()
+        ep, loss = rnd(ep, batch, w, step)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        equal = all(torch.equal(a[0], a[1]) for a in leaves(ep))
+        if equal != (step == 1):
+            fail(f"make_hfl_round: edges {'equal' if equal else 'differ'} "
+                 f"after round {step + 1}")
+        if common.LAUNCHES["flash_attention_bwd"] != 2 * cfg.num_layers:
+            fail(f"make_hfl_round: {common.LAUNCHES['flash_attention_bwd']} "
+                 f"flash_attention_bwd launches in a round of 2 edges")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  make_hfl_round {cfg.name} full width, 2 edges, t_es 2: "
+          f"losses {losses[0]:.4f}, {losses[1]:.4f}; edges differ after "
+          f"round 1, equal after the sync round 2; ms a round "
+          f"{ms[0]:.1f}, {ms[1]:.1f}; peak {peak:.2f} GB")
+    return dict(losses=losses, ms=ms, peak_gb=peak)
+
+
+def training_phase(dev):
+    """Phase 27; returns (the two backward kernels' rows, the launches of
+    each on its full-width run, the JSON record)."""
+    rows = [check_flash_attention_bwd(dev), check_rwkv6_scan_bwd(dev)]
+    for r in rows:
+        print_row(r)
+    rec = {"router_grad_err": check_router_gate_grad(dev)}
+    rec["cpu_vs_cuda"] = train_cpu_vs_cuda(dev)
+    rec["launcher"] = launcher_runs(dev)
+    q = train_full_width(dev, "qwen2-1.5b",
+                         ("flash_attention", "flash_attention_bwd"))
+    rec["hfl_round"] = hfl_round_full_width(dev, q.pop("cfg"),
+                                            q.pop("params"))
+    free_memory()
+    r = train_full_width(dev, "rwkv6-1.6b", ("rwkv6_scan", "rwkv6_scan_bwd"))
+    r.pop("cfg")
+    r.pop("params")
+    free_memory()
+    rec["qwen2-1.5b"], rec["rwkv6-1.6b"] = q, r
+    launches = {"flash_attention_bwd": q["launches"]["flash_attention_bwd"],
+                "rwkv6_scan_bwd": r["launches"]["rwkv6_scan_bwd"]}
+    return rows, launches, rec
+
+
 def to_device(tree, dev):
     if isinstance(tree, dict):
         return {k: to_device(v, dev) for k, v in tree.items()}
@@ -4807,10 +5276,20 @@ def main() -> int:
     serve_rows["zoo_phases_s"] = time.perf_counter() - t_zoo
     print(f"  phases 21-26 in {serve_rows['zoo_phases_s']:.1f} s")
 
+    t_train = time.perf_counter()
+    print("phase 27: LM-scale HFL training (B4 and B5 backward kernels, B6's "
+          "gate gradient, reduced CPU against CUDA, launch.train --arch, "
+          "qwen2-1.5b and rwkv6-1.6b at full width)")
+    train_rows, train_launch, training = training_phase(dev)
+    rows += train_rows
+    training["phase_s"] = time.perf_counter() - t_train
+    print(f"  phase 27 in {training['phase_s']:.1f} s")
+
     # each kernel's launches on its own main path: B1-B3 and Random's
     # scan the HFL runs of phase 4 (three policies), P3's walk the gated
     # non-convex run, B4 the qwen2 serve (the shape its row is timed at;
-    # 8 more in mixtral's), B5 the rwkv6 serve, B6 the mixtral serve
+    # 8 more in mixtral's), B5 the rwkv6 serve, B6 the mixtral serve, the
+    # backward kernels the full-width training steps of phase 27
     counts = {**{k: launches[k] for k in ("context_pairwise",
                                           "budgeted_topk",
                                           "masked_aggregate",
@@ -4821,7 +5300,8 @@ def main() -> int:
               "rwkv6_scan": rlaunch["rwkv6_scan"],
               "moe_router": mlaunch["moe_router"],
               "density_sort_tiles": mesh_launch["density_sort_tiles"],
-              "segment_walk": mesh_launch["segment_walk"]}
+              "segment_walk": mesh_launch["segment_walk"],
+              **train_launch}
     for k, v in counts.items():
         if v <= 0:
             fail(f"{k} was launched no time on its main path")
@@ -4843,7 +5323,7 @@ def main() -> int:
                       "bandit": bandit, "panels": panels,
                       "faults": faults, "resilience": resilience,
                       "trials": trials, "mesh": mesh,
-                      "serve": serve_rows}))
+                      "serve": serve_rows, "training": training}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -131,11 +131,6 @@ def _device_only(scenario: str) -> bool:
     return scenario in DEVICE_PRESETS and scenario not in HOST_SCENARIOS
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue "
-                               f"A item {item})")
-
-
 def resolve_config(env_spec: EnvSpec):
     """The ``HFLExperimentConfig`` an ``EnvSpec`` implies (named config
     or the scenario's default, then overrides and deadline)."""

@@ -11,8 +11,8 @@ build or load error raises.
 ``--fmad=false`` (no contraction of a multiply and an add into one FMA)
 applies only to the sources whose plain versions they must match
 bitwise (the HFL path's six); the attention, scan and router kernels
-round differently from their plain versions anyway and keep nvcc's
-default contraction.
+and the attention and scan backward kernels round differently from
+their plain versions anyway and keep nvcc's default contraction.
 """
 from __future__ import annotations
 
@@ -28,7 +28,8 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("context_pairwise", "budgeted_topk", "masked_aggregate",
            "flash_attention", "rwkv6_scan", "moe_router", "random_assign",
-           "flgreedy_walk", "segment_walk")
+           "flgreedy_walk", "segment_walk", "flash_attention_bwd",
+           "rwkv6_scan_bwd")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BITWISE = ("--fmad=false",)

@@ -25,7 +25,8 @@ LAUNCHES: Dict[str, int] = {"context_pairwise": 0, "budgeted_topk": 0,
                             "masked_aggregate": 0, "flash_attention": 0,
                             "rwkv6_scan": 0, "moe_router": 0,
                             "random_assign": 0, "flgreedy_walk": 0,
-                            "density_sort_tiles": 0, "segment_walk": 0}
+                            "density_sort_tiles": 0, "segment_walk": 0,
+                            "flash_attention_bwd": 0, "rwkv6_scan_bwd": 0}
 
 
 def reset_launches() -> None:

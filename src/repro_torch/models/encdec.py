@@ -110,11 +110,14 @@ def _cross_attend(lp: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def forward(params: dict, cfg: ModelConfig, frames: torch.Tensor,
-            tokens: torch.Tensor, enc_out: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            tokens: torch.Tensor, enc_out: Optional[torch.Tensor] = None,
+            unroll: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training forward: (logits over the target tokens (B, S, V), aux
     loss 0). ``enc_out``, when given, is ``encode(frames)`` already made
-    (the frames are then not encoded again)."""
+    (the frames are then not encoded again). ``unroll`` changes nothing
+    (the reference's scan option); like the reference's, this forward
+    takes no ``remat``."""
+    del unroll
     if enc_out is None:
         enc_out = encode(params, cfg, frames)
     x = params["embed"][tokens.long()]

@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
@@ -103,6 +104,18 @@ def _tree_map(fn, tree):
 def layer_params(params: dict, i: int, key: str = "layers") -> dict:
     """Layer i's parameters: views into the stacked ``params[key]``."""
     return _tree_map(lambda t: t[i], params[key])
+
+
+def remat_call(remat: bool, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``; with ``remat`` under activation
+    checkpointing (``torch.utils.checkpoint``, non-reentrant): only the
+    inputs are kept and the body runs again in the backward pass, the
+    counterpart of the reference's ``jax.checkpoint`` of a layer body.
+    The rerun launches the body's kernels a second time."""
+    if not remat:
+        return fn(*args, **kwargs)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             **kwargs)
 
 
 # ---------------------------------------------------------------------------

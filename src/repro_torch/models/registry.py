@@ -1,5 +1,7 @@
-"""Uniform per-architecture serving API, mirroring the reference's
+"""Uniform per-architecture API, mirroring the reference's
 ``models/registry.py`` for its six arch types: ``init_params``,
+``train_loss`` (next-token cross-entropy, per-example weights, the MoE
+aux loss), ``supports_shape``, ``make_concrete_batch``,
 ``init_serve_state``, ``state_batch_axes``, ``serve_step``, ``prefill``,
 ``serve_cache_len``, and ``input_specs``/``serve_specs`` (shapes and
 dtypes as tensors on the ``meta`` device, nothing allocated). ``dense``,
@@ -13,7 +15,7 @@ CUDA device. The serve state's tensors are updated in place by
 from __future__ import annotations
 
 import logging
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -48,6 +50,59 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     if cfg.arch_type == "audio":
         return encdec.init_model(cfg, gen, device=dev)
     return transformer.init_lm(cfg, gen, device=dev)  # dense / moe / vlm
+
+
+def supports_shape(cfg: ModelConfig, shape: InputShape) -> bool:
+    if shape.name == "long_500k":
+        return cfg.supports_long_context
+    return True
+
+
+# ---------------------------------------------------------------------------
+# training
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor,
+          weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy in float32; ``weights`` (B,)
+    reweight the examples (HFL participation masking: dropped cohorts
+    contribute zero)."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    per_ex = torch.mean(logz - gold, dim=-1)            # (B,)
+    if weights is None:
+        return torch.mean(per_ex)
+    w = weights.to(torch.float32)
+    return torch.sum(per_ex * w) / torch.clamp(torch.sum(w), min=1.0)
+
+
+def train_loss(params: dict, cfg: ModelConfig,
+               batch: Dict[str, torch.Tensor], remat: bool = False,
+               weights: Optional[torch.Tensor] = None,
+               unroll: bool = False) -> torch.Tensor:
+    """The training loss, a float32 scalar: batch holds ``tokens`` and
+    ``labels`` (B, S), with ``frames`` for ``audio`` and ``patches`` for
+    ``vlm`` (whose loss covers the text positions only); the MoE layers'
+    load-balance loss enters with weight 0.01. ``remat`` checkpoints each
+    layer; ``unroll`` changes nothing (the reference's scan option)."""
+    _check(cfg)
+    kw = dict(remat=remat, unroll=unroll)
+    if cfg.arch_type == "ssm":
+        logits, aux = rwkv6.forward_lm(params, cfg, batch["tokens"], **kw)
+    elif cfg.arch_type == "hybrid":
+        logits, aux = zamba2.forward_lm(params, cfg, batch["tokens"], **kw)
+    elif cfg.arch_type == "audio":
+        logits, aux = encdec.forward(params, cfg, batch["frames"],
+                                     batch["tokens"], unroll=unroll)
+    elif cfg.arch_type == "vlm":
+        logits, aux = transformer.forward_lm(
+            params, cfg, batch["tokens"], patch_embeds=batch["patches"], **kw)
+        logits = logits[:, cfg.num_patches:]   # loss on text positions only
+    else:
+        logits, aux = transformer.forward_lm(params, cfg, batch["tokens"],
+                                             **kw)
+    return _xent(logits, batch["labels"], weights) + 0.01 * aux
 
 
 def serve_window(cfg: ModelConfig, shape: InputShape) -> int:
@@ -169,3 +224,22 @@ def serve_specs(cfg: ModelConfig, shape: InputShape) -> Dict[str, Any]:
                              window=serve_window(cfg, shape), device="meta")
     return {"tokens": torch.empty((b, 1), dtype=torch.int32, device="meta"),
             "state": state}
+
+
+def make_concrete_batch(cfg: ModelConfig, shape: InputShape, seed: int = 0,
+                        device=None) -> Dict[str, torch.Tensor]:
+    """A real batch of ``input_specs``' shapes on ``device``: token ids
+    uniform in [0, vocab), embeddings N(0, 1) in the config
+    dtype, drawn in spec order by a ``torch.Generator`` seeded with
+    ``seed`` (the numbers differ from the reference's JAX draws)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for name, spec in input_specs(cfg, shape).items():
+        if spec.dtype == torch.int32:
+            out[name] = torch.randint(0, cfg.vocab_size, tuple(spec.shape), generator=gen,
+                                      device=dev, dtype=torch.int32)
+        else:
+            out[name] = torch.randn(tuple(spec.shape), generator=gen,
+                                    device=dev).to(spec.dtype)
+    return out

@@ -166,17 +166,24 @@ def _shift(x: torch.Tensor) -> torch.Tensor:
     return F.pad(x, (0, 0, 1, 0))[:, :-1]
 
 
-def forward_lm(params: dict, cfg: ModelConfig, tokens: torch.Tensor
+def _layer(lp: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    z = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    tm_out, _ = time_mix(lp["tm"], z, _shift(z), cfg)
+    x = x + tm_out
+    z = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + channel_mix(lp["cm"], z, _shift(z))
+
+
+def forward_lm(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+               remat: bool = False, unroll: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(logits (B, T, V), aux loss 0). One WKV scan launch a layer."""
+    """(logits (B, T, V), aux loss 0). One WKV scan launch a layer.
+    ``remat`` checkpoints each layer; ``unroll`` changes nothing (the
+    reference's scan option)."""
+    del unroll
     x = params["embed"][tokens.long()]
     for i in range(cfg.num_layers):
-        lp = L.layer_params(params, i)
-        z = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        tm_out, _ = time_mix(lp["tm"], z, _shift(z), cfg)
-        x = x + tm_out
-        z = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + channel_mix(lp["cm"], z, _shift(z))
+        x = L.remat_call(remat, _layer, L.layer_params(params, i), cfg, x)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ params["lm_head"], torch.zeros((), dtype=torch.float32,
                                               device=x.device)

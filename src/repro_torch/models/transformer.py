@@ -119,11 +119,16 @@ def unembed(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def forward_lm(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-               patch_embeds: Optional[torch.Tensor] = None
+               patch_embeds: Optional[torch.Tensor] = None,
+               remat: bool = False, unroll: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training/prefill forward: (logits (B, S, V), the sum of the MoE
     layers' load-balance losses; 0 for a dense model). With
-    ``patch_embeds`` (B, P, d) the logits cover the P + S positions."""
+    ``patch_embeds`` (B, P, d) the logits cover the P + S positions.
+    ``remat`` checkpoints each layer (``layers.remat_call``); ``unroll``
+    is the reference's scan option and changes nothing here (the layers
+    are a Python loop)."""
+    del unroll
     x = embed_inputs(params, cfg, tokens, patch_embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
@@ -132,7 +137,8 @@ def forward_lm(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     mask = _prefix_mask(s, prefix, cfg.sliding_window, x.device)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
-        x, loss = _layer_apply(cfg, L.layer_params(params, i), x, positions,
+        x, loss = L.remat_call(remat, _layer_apply, cfg,
+                               L.layer_params(params, i), x, positions,
                                mask=mask, window=cfg.sliding_window,
                                aux=True)
         if loss is not None:

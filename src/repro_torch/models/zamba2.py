@@ -72,11 +72,21 @@ def _shared_attn(params: dict, cfg: ModelConfig, x, positions, mask=None,
     return x + L.mlp_block(sp["mlp"], L.rms_norm(x, sp["ln2"], cfg.norm_eps))
 
 
-def forward_lm(params: dict, cfg: ModelConfig, tokens: torch.Tensor
+def _mamba_layer(lp: dict, cfg: ModelConfig, x: torch.Tensor
+                 ) -> torch.Tensor:
+    out, _, _ = mamba_mix(lp["mamba"], L.rms_norm(x, lp["ln"], cfg.norm_eps),
+                          cfg)
+    return x + out
+
+
+def forward_lm(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+               remat: bool = False, unroll: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training/prefill forward: (logits (B, S, V), aux loss 0). The
     shared attention is causal over the S positions (B4, one launch a
-    site)."""
+    site). ``remat`` checkpoints each Mamba2 block, as the reference's
+    checkpoints its Mamba2 scan body; ``unroll`` changes nothing."""
+    del unroll
     x = params["embed"][tokens.long()]
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
@@ -84,10 +94,9 @@ def forward_lm(params: dict, cfg: ModelConfig, tokens: torch.Tensor
     layer = 0
     for gsize in _group_sizes(cfg):
         for _ in range(gsize):
-            lp = L.layer_params(params, layer, "mamba_layers")
-            out, _, _ = mamba_mix(lp["mamba"],
-                                  L.rms_norm(x, lp["ln"], cfg.norm_eps), cfg)
-            x = x + out
+            x = L.remat_call(remat, _mamba_layer,
+                             L.layer_params(params, layer, "mamba_layers"),
+                             cfg, x)
             layer += 1
         x = _shared_attn(params, cfg, x, positions)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)

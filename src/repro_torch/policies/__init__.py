@@ -3,18 +3,24 @@
     from repro_torch import policies
     spec = policies.PolicySpec.from_experiment(cfg, horizon=300)
     pol = policies.make("cocs", spec, h_t=5)
+    shim = policies.make_legacy("cocs", spec, seed=0, h_t=5)  # on CUDA
 
 Registered names (case-insensitive): the tensor policies ``cocs``,
 ``oracle`` and ``random`` (a leading seed axis, driven by the engines of
 ``policies.engine``, ``sim.engine`` and ``experiment``), and the
 host-state policies ``cucb``, ``linucb`` and ``cocs-phased`` (the
 reference's numpy engines, one seed at a time on ``RoundData``:
-``run_rounds_host``, or ``PolicyAdapter``). The engines' functions are
-exported here, as ``repro.policies`` exports them.
+``run_rounds_host``, or ``PolicyAdapter``). ``make_legacy`` wraps any
+of them in a ``PolicyAdapter``, the reference's legacy ``select(rd)`` /
+``update(rd, assign)`` interface (a tensor policy one seed on
+``device``: ``None`` means CUDA). The engines' functions are exported
+here, as ``repro.policies`` exports them.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, Tuple
+
+from repro_torch.kernels.common import resolve_device
 
 from repro_torch.policies.base import (FunctionalPolicy, PolicyAdapter,
                                        PolicySpec, Round, round_from_arrays,
@@ -52,13 +58,23 @@ def make(name: str, spec: PolicySpec, **overrides) -> FunctionalPolicy:
     return _REGISTRY[key](spec=spec, **overrides)
 
 
+def make_legacy(name: str, spec: PolicySpec, seed: int = 0, device=None,
+                **overrides) -> PolicyAdapter:
+    """``make(name, spec, **overrides)`` in a ``PolicyAdapter``; a tensor
+    policy runs on ``device`` (``None``: CUDA, raising without one)."""
+    policy = make(name, spec, **overrides)
+    dev = resolve_device(device) if policy.tensor_capable else None
+    return PolicyAdapter(policy, seed=seed, device=dev)
+
+
 __all__ = [
     "COCS", "COCSState", "CUCB", "FunctionalPolicy", "HostCOCS", "LinUCB",
     "Oracle", "PolicyAdapter", "PolicySpec", "Random", "Round",
     "feasible_cohort_bound", "flgreedy_assign", "greedy_assign", "make",
-    "names", "policy_scan_step", "random_assign", "round_from_arrays",
-    "round_from_data", "rounds_to_scan_axes", "run_rounds",
-    "run_rounds_grid", "run_rounds_grid_params", "run_rounds_host",
+    "make_legacy", "names", "policy_scan_step", "random_assign",
+    "round_from_arrays", "round_from_data", "rounds_to_scan_axes",
+    "run_rounds", "run_rounds_grid", "run_rounds_grid_params",
+    "run_rounds_host",
     "run_rounds_multi_seed", "stack_rounds", "stack_rounds_multi",
     "stack_states", "traced_utility",
 ]

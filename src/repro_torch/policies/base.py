@@ -15,7 +15,8 @@ The host env's ``RoundData`` (float64 numpy) becomes a ``Round`` through
 ``round_from_data`` (numpy in the reference's float32 dtypes) and
 ``round_from_arrays`` (tensors). Host-state policies (CUCB, LinUCB,
 phased COCS, ``tensor_capable = False``) select on ``RoundData`` one seed
-at a time; ``PolicyAdapter`` drives them one round at a time.
+at a time; ``PolicyAdapter`` drives them one round at a time, and a
+tensor policy too, one seed on a given device.
 """
 from __future__ import annotations
 
@@ -155,33 +156,69 @@ class FunctionalPolicy:
 
 
 class PolicyAdapter:
-    """One seed of a host-state policy, one round at a time, on
-    ``RoundData``: ``select(rd) -> assign`` (N,) int64, ``update(rd,
-    assign)``, ``step`` (both), and ``last_explored``. A tensor policy is
-    refused: the engines (``run_rounds`` and its batched forms) drive
-    those on the run's device."""
+    """One seed of a policy, one round at a time, on ``RoundData``:
+    ``select(rd) -> assign`` (N,) int64, ``update(rd, assign)``, ``step``
+    (both), ``name`` and ``last_explored``, the reference's legacy
+    interface (``policies.make_legacy`` builds one).
 
-    def __init__(self, policy: FunctionalPolicy, seed: int = 0):
-        if policy.tensor_capable:
+    A host-state policy selects on the ``RoundData`` itself. A tensor
+    policy runs on ``device``, which it must be given: each round becomes
+    a one-seed ``Round`` on that device through ``round_from_data``, and
+    its state stays there (``seed`` picks its keys). Only the assignment
+    comes back to the host; ``last_explored`` is read when asked for."""
+
+    def __init__(self, policy: FunctionalPolicy, seed: int = 0,
+                 device=None):
+        if policy.tensor_capable and device is None:
             raise ValueError(
-                f"{policy.name} is a tensor policy; PolicyAdapter drives "
-                "host policies only (run_rounds drives tensor policies)")
+                f"{policy.name} is a tensor policy; PolicyAdapter drives it "
+                "one seed at a time on a given device= (run_rounds drives "
+                "tensor policies over seeds)")
         self.policy = policy
-        self._state = policy.init(int(seed))
+        self.name = policy.name
+        self.device = None if device is None else torch.device(device)
+        if policy.tensor_capable:
+            self._state = policy.init(1, self.device, seeds=(int(seed),))
+        else:
+            self._state = policy.init(int(seed))
         self._aux = None
-        self.last_explored = False
+        self._round = None          # (RoundData, its Round) of the select
+        self._explored = False
+
+    @property
+    def last_explored(self) -> bool:
+        return bool(np.asarray(
+            self._explored.cpu() if isinstance(self._explored, torch.Tensor)
+            else self._explored).reshape(-1)[0])
+
+    def _as_round(self, rd) -> Round:
+        if self._round is None or self._round[0] is not rd:
+            view = round_from_data(rd)
+            self._round = (rd, round_from_arrays(
+                [np.asarray(f)[None] for f in view], self.device))
+        return self._round[1]
 
     def select(self, rd) -> np.ndarray:
-        assign, aux = self.policy.select(self._state, rd)
+        if self.policy.tensor_capable:
+            assign, aux = self.policy.select(self._state, self._as_round(rd))
+            assign = assign[0].cpu()
+        else:
+            assign, aux = self.policy.select(self._state, rd)
         self._aux = aux
         if "explored" in aux:
-            self.last_explored = bool(
-                np.asarray(aux["explored"]).reshape(-1)[0])
+            self._explored = aux["explored"]
         return np.asarray(assign, np.int64)
 
     def update(self, rd, assign: np.ndarray) -> None:
-        self._state = self.policy.update(self._state, rd,
-                                         np.asarray(assign), self._aux)
+        if self.policy.tensor_capable:
+            a = torch.as_tensor(np.asarray(assign, np.int32)[None],
+                                device=self.device)
+            self._state = self.policy.update(self._state,
+                                             self._as_round(rd), a,
+                                             self._aux)
+        else:
+            self._state = self.policy.update(self._state, rd,
+                                             np.asarray(assign), self._aux)
 
     def step(self, rd) -> np.ndarray:
         assign = self.select(rd)

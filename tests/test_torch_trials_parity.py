@@ -329,6 +329,12 @@ def test_launch_train_paper_matches_the_reference(capsys):
 
 
 def test_launch_train_arch_not_ported():
+    """``--arch`` (LM-scale training) is ported; without ``--device`` it
+    takes CUDA, and on a machine without a card it raises instead of
+    falling back to the CPU."""
+    import torch
     from repro_torch.launch.train import main as port_main
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         port_main(["--arch", "qwen2-1.5b", "--rounds", "2"])
